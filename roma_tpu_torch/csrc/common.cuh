@@ -1,0 +1,52 @@
+// Shared helpers for the hand-written Hopper kernels: f32 <-> storage-type
+// conversion and the dtype switch of the C entry points (0 = float32,
+// 1 = bfloat16, the codes of roma_tpu_torch/_ext.py DTYPE_CODES).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace roma {
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// round an f32 value to the storage type T and back (the I/O-dtype rounding
+// between stages that the reference computes)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
+
+// opt a kernel into more than 48 KB of dynamic shared memory when needed
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace roma
+
+#define ROMA_DISPATCH_DTYPE(code, ...)                  \
+  switch (code) {                                       \
+    case 0: {                                           \
+      using scalar_t = float;                           \
+      __VA_ARGS__;                                      \
+      break;                                            \
+    }                                                   \
+    case 1: {                                           \
+      using scalar_t = __nv_bfloat16;                   \
+      __VA_ARGS__;                                      \
+      break;                                            \
+    }                                                   \
+    default:                                            \
+      return static_cast<int>(cudaErrorInvalidValue);   \
+  }

@@ -1,0 +1,6 @@
+from .config import RefinerSpec, RoMaConfig
+from .matcher import RoMaNet
+from .roma import RegressionMatcher
+from .zoo import roma_outdoor
+
+__all__ = ["RefinerSpec", "RegressionMatcher", "RoMaConfig", "RoMaNet", "roma_outdoor"]

@@ -1,0 +1,222 @@
+"""Big RoMa match heads and coarse-to-fine decoder (counterpart of
+roma_tpu/models/matcher.py), NHWC at every public boundary.
+
+  * ``GP``: cosine-kernel Gaussian-process regression onto a Fourier basis of
+    B's coordinates, in float32, by Cholesky factor and two triangular solves.
+  * ``TransformerDecoder``: pre-norm ViT blocks over cat(GP posterior,
+    features), a linear head to cls_res^2 + 1 anchor logits and certainty.
+  * ``ConvRefiner``: x_hat lookup (Kernel C), displacement embedding, local
+    correlation (Kernel B), depthwise 5x5 blocks (Kernel D when the stack is
+    at most 32 wide, PyTorch's convs otherwise), float32 out_conv.
+  * ``Decoder``: the scale loop, 16 -> 1, or 8 -> 1 in the upsample pass.
+
+Module names follow the released checkpoint (``decoder.gps.16``,
+``decoder.proj.{s}.{0,1}``, ``decoder.conv_refiner.{s}.block1``,
+``hidden_blocks.{j}``, ``out_conv``, ``disp_emb``).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+
+from ..ops import (
+    cls_to_flow_refine,
+    fold_refiner,
+    fused_refiner_stack,
+    interpolate,
+    local_correlation,
+    normalized_grid,
+    warp_sample,
+)
+from ..ops.refiner_stack import MAX_C
+from .blocks import nhwc, refiner_block
+from .config import RefinerSpec, RoMaConfig
+from .encoders import CNNandDinov2
+from .vit import Block
+
+
+def cos_kernel(x: torch.Tensor, y: torch.Tensor, T: float, eps: float = 1e-6):
+    """K = exp((cos(x, y) - 1) / T); x (B, N, D), y (B, M, D) float32."""
+    c = x @ y.transpose(-1, -2)
+    nx, ny = x.norm(dim=-1), y.norm(dim=-1)
+    c = c / (nx[..., :, None] * ny[..., None, :] + eps)
+    return torch.exp((c - 1.0) / T)
+
+
+class GP(nn.Module):
+    """GP regression from B-features to B's Fourier positional basis
+    (reference matcher.py:203-323, eval path). Runs in float32."""
+
+    T = 0.2  # cosine-kernel temperature
+    SIGMA_NOISE = 0.1
+
+    def __init__(self, gp_dim: int = 512):
+        super().__init__()
+        self.gp_dim = gp_dim
+        self.pos_conv = nn.Conv2d(2, gp_dim, 1)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        b, h1, w1, c = x.shape
+        _, h2, w2, _ = y.shape
+        m = h2 * w2
+        coords = normalized_grid(h2, w2, device=x.device)[None]
+        pos = nhwc(self.pos_conv, coords)
+        f = torch.cos(8 * math.pi * pos).reshape(1, m, self.gp_dim).expand(b, m, self.gp_dim)
+        xf = x.float().reshape(b, h1 * w1, c)
+        yf = y.float().reshape(b, m, c)
+        k_yy = cos_kernel(yf, yf, self.T)
+        k_xy = cos_kernel(xf, yf, self.T)
+        k_yy = k_yy + self.SIGMA_NOISE * torch.eye(m, device=x.device)
+        chol = torch.linalg.cholesky_ex(k_yy).L  # no host sync on the info check
+        z = torch.linalg.solve_triangular(chol, f, upper=False)
+        w = torch.linalg.solve_triangular(chol.transpose(-1, -2), z, upper=True)
+        return (k_xy @ w).reshape(b, h1, w1, self.gp_dim)
+
+
+class TransformerDecoder(nn.Module):
+    """ViT blocks + linear head to cls_res^2 + 1 channels
+    (reference transformer/__init__.py:10-46)."""
+
+    def __init__(self, depth: int, dim: int, num_heads: int, out_dim: int):
+        super().__init__()
+        # reference Block defaults: no qkv bias, no LayerScale
+        self.blocks = nn.ModuleList(
+            Block(dim, num_heads, layer_scale=False, qkv_bias=False) for _ in range(depth)
+        )
+        self.to_out = nn.Linear(dim, out_dim)
+
+    def forward(self, gp_posterior: torch.Tensor, features: torch.Tensor):
+        b, h, w, _ = gp_posterior.shape
+        dt = self.to_out.weight.dtype
+        tokens = torch.cat((gp_posterior.to(dt), features.to(dt)), dim=-1).reshape(b, h * w, -1)
+        for blk in self.blocks:
+            tokens = blk(tokens)
+        out = self.to_out(tokens).float().reshape(b, h, w, -1)
+        return out[..., :-1], out[..., -1:]
+
+
+class ConvRefiner(nn.Module):
+    """Per-scale refinement CNN (reference matcher.py:23-179)."""
+
+    def __init__(self, spec: RefinerSpec):
+        super().__init__()
+        self.spec = spec
+        k = spec.kernel_size
+        self.block1 = refiner_block(spec.in_dim, spec.hidden_dim, k)
+        self.hidden_blocks = nn.ModuleList(
+            refiner_block(spec.hidden_dim, spec.hidden_dim, k) for _ in range(spec.hidden_blocks)
+        )
+        self.out_conv = nn.Conv2d(spec.hidden_dim, 3, 1)
+        self.disp_emb = nn.Conv2d(2, spec.disp_emb_dim, 1)
+
+    def forward(self, x, y, flow, scale_factor: float = 1.0):
+        """x, y: (B, H, W, C) projected A/B features; flow (B, H, W, 2)
+        float32 A->B warp. Returns (delta_flow, delta_certainty), float32."""
+        b, hs, ws, _ = x.shape
+        s = self.spec
+        dt = self.disp_emb.weight.dtype
+        x_hat = warp_sample(y, flow)
+        disp = flow - normalized_grid(hs, ws, device=flow.device)
+        emb = nhwc(self.disp_emb, (40.0 / 32.0 * scale_factor * disp).to(dt))
+        parts = [x, x_hat, emb]
+        if s.local_corr_radius is not None:
+            parts.append(local_correlation(x, y, s.local_corr_radius, flow).to(dt))
+        d = torch.cat(parts, dim=-1)
+        if not self.training and s.hidden_dim <= MAX_C:
+            d = fused_refiner_stack(d, fold_refiner(self.block1, self.hidden_blocks))
+        else:
+            d = nhwc(self.block1, d)
+            for blk in self.hidden_blocks:
+                d = nhwc(blk, d)
+        out = nhwc(self.out_conv, d.float())  # out_conv stays float32
+        return out[..., :2], out[..., 2:]
+
+
+class Decoder(nn.Module):
+    """Scale loop (reference matcher.py:326-527); ``upsample=True`` runs
+    scales 8..1 seeded with the previous pass's finest flow/certainty."""
+
+    REFINE_INIT = 4  # delta-flow scale of the reference decoder
+
+    def __init__(self, config: RoMaConfig = RoMaConfig()):
+        super().__init__()
+        self.embedding_decoder = TransformerDecoder(
+            config.decoder_depth, config.decoder_dim, config.decoder_heads, config.cls_res**2 + 1
+        )
+        self.gps = nn.ModuleDict({"16": GP(config.gp_dim)})
+        self.proj = nn.ModuleDict({
+            str(s): nn.Sequential(nn.Conv2d(cin, cout, 1), nn.BatchNorm2d(cout))
+            for s, (cin, cout) in config.proj_specs().items()
+        })
+        self.conv_refiner = nn.ModuleDict({
+            str(s): ConvRefiner(spec) for s, spec in config.refiner_specs().items()
+        })
+
+    def forward(self, f1, f2, upsample=False, flow=None, certainty=None,
+                scale_factor: float = 1.0, gm_logit_bias=None):
+        """``gm_logit_bias`` (B, H16, W16, cls_res^2) is the diagnostic hook of
+        roma_tpu/models/matcher.py:361-366: added to the coarse anchor logits
+        before cls_to_flow_refine. Never set on the production path."""
+        scales = [8, 4, 2, 1] if upsample else [16, 8, 4, 2, 1]
+        sizes = {s: (f.shape[1], f.shape[2]) for s, f in f1.items()}
+        h, w = sizes[1]
+        b = f1[1].shape[0]
+        dev = f1[1].device
+        coarsest = scales[0]
+        if not upsample:
+            flow = normalized_grid(*sizes[coarsest], device=dev).expand(b, *sizes[coarsest], 2)
+            certainty = torch.zeros((b, *sizes[coarsest], 1), device=dev)
+        else:
+            flow = interpolate(flow, sizes[coarsest], mode="bilinear")
+            certainty = interpolate(certainty, sizes[coarsest], mode="bilinear")
+
+        corresps: dict[int, dict[str, torch.Tensor]] = {}
+        for ins in scales:
+            proj = self.proj[str(ins)]
+            dt = proj[0].weight.dtype
+            f1_s = nhwc(proj, f1[ins].to(dt)).contiguous()
+            f2_s = nhwc(proj, f2[ins].to(dt)).contiguous()
+            if ins == 16 and not upsample:
+                gp_posterior = self.gps["16"](f1_s, f2_s)
+                cls_logits, certainty = self.embedding_decoder(gp_posterior, f1_s)
+                if gm_logit_bias is not None:
+                    cls_logits = cls_logits + gm_logit_bias
+                flow = cls_to_flow_refine(cls_logits)
+            flow = flow.float().contiguous()
+            delta_flow, delta_certainty = self.conv_refiner[str(ins)](
+                f1_s, f2_s, flow, scale_factor=scale_factor
+            )
+            displacement = ins * torch.stack(
+                (delta_flow[..., 0] / (self.REFINE_INIT * w),
+                 delta_flow[..., 1] / (self.REFINE_INIT * h)),
+                dim=-1,
+            )
+            flow = flow + displacement
+            certainty = certainty + delta_certainty
+            corresps[ins] = {"certainty": certainty, "flow": flow}
+            if ins != 1:
+                flow = interpolate(flow, sizes[ins // 2], mode="bilinear").detach()
+                certainty = interpolate(certainty, sizes[ins // 2], mode="bilinear").detach()
+        return corresps
+
+
+class RoMaNet(nn.Module):
+    """Encoder + decoder with the reference's A|B concat batching
+    (reference matcher.py:585-670)."""
+
+    def __init__(self, config: RoMaConfig = RoMaConfig()):
+        super().__init__()
+        self.config = config
+        self.encoder = CNNandDinov2(config)
+        self.decoder = Decoder(config)
+
+    def forward(self, im_A, im_B, upsample=False, flow=None, certainty=None,
+                scale_factor: float = 1.0, gm_logit_bias=None):
+        """Symmetric: the batch is [A->B, B->A], so flows and certainties
+        come back with batch 2B."""
+        pyramid = self.encoder(torch.cat((im_A, im_B), dim=0), upsample=upsample)
+        f_s = {s: torch.cat(f.chunk(2)[::-1], dim=0) for s, f in pyramid.items()}
+        return self.decoder(pyramid, f_s, upsample=upsample, flow=flow, certainty=certainty,
+                            scale_factor=scale_factor, gm_logit_bias=gm_logit_bias)

@@ -1,0 +1,159 @@
+"""RegressionMatcher, the public big-RoMa API (counterpart of
+roma_tpu/models/roma.py).
+
+``match`` runs the two-pass pipeline: a coarse pass at the coarse resolution
+(DINOv2 + GP + decoder, scales 16..1), then a refine-only pass at
+``upsample_res`` (scales 8..1, seeded with the finest coarse flow), certainty
+attenuation from the first pass's scale-16 logits, out-of-range ->
+certainty 0, clamp to [-1, 1], and the symmetric side-by-side warp.
+"""
+from __future__ import annotations
+
+import math
+from pathlib import Path
+
+import numpy as np
+import torch
+from PIL import Image
+
+from ..ops import balanced_sample, interpolate, normalized_grid
+from ..utils.image import imagenet_normalize, load_image, resize
+from .matcher import RoMaNet
+
+
+class RegressionMatcher:
+    """The symmetric two-pass matcher of ``roma_outdoor``: coarse pass at
+    (h, w), refinement at ``upsample_res``, threshold-balanced sampling."""
+
+    SAMPLE_THRESH = 0.05
+
+    def __init__(
+        self,
+        net: RoMaNet,
+        h: int = 560,
+        w: int = 560,
+        upsample_res: tuple[int, int] = (864, 864),
+        seed: int = 0,
+    ):
+        if h % 14 or w % 14:
+            raise ValueError(f"coarse res must be a multiple of 14, got {(h, w)}")
+        self.net = net.eval()
+        self.h_resized, self.w_resized = h, w
+        self.upsample_res = tuple(upsample_res)
+        p = next(net.encoder.parameters())
+        self.device, self.dtype = p.device, p.dtype
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _match_coarse(self, im_A, im_B, out_hw, gm_logit_bias=None):
+        hs, ws = im_A.shape[1:3]
+        sf = math.sqrt(hs * ws / 560.0**2)
+        corresps = self.net(im_A, im_B, scale_factor=sf, gm_logit_bias=gm_logit_bias)
+        low = interpolate(corresps[16]["certainty"], out_hw, mode="bilinear")
+        low = 0.5 * low * (low < 0)
+        return low, corresps[1]["flow"], corresps[1]["certainty"]
+
+    def _match_upsample(self, im_A, im_B, flow, certainty):
+        hs, ws = im_A.shape[1:3]
+        sf = math.sqrt(hs * ws / 560.0**2)
+        corresps = self.net(im_A, im_B, upsample=True, flow=flow, certainty=certainty,
+                            scale_factor=sf)
+        return corresps[1]["flow"], corresps[1]["certainty"]
+
+    def _assemble(self, flow, certainty, low_res_certainty):
+        """Final warp assembly (reference matcher.py:891-929)."""
+        b, hs, ws, _ = flow.shape
+        cert = torch.sigmoid((certainty - low_res_certainty)[..., 0])
+        wrong = (flow.abs() > 1).any(dim=-1)
+        cert = torch.where(wrong, torch.zeros_like(cert), cert)
+        flow = flow.clamp(-1, 1)
+        grid = normalized_grid(hs, ws, device=flow.device).expand(b // 2, hs, ws, 2)
+        a2b, b2a = flow.chunk(2)
+        q_warp = torch.cat((grid, a2b), dim=-1)
+        s_warp = torch.cat((b2a, grid), dim=-1)
+        return torch.cat((q_warp, s_warp), dim=2), torch.cat(cert.chunk(2), dim=2)
+
+    def _prep_pair(self, pil_A, pil_B, hw):
+        """Bicubic resize on the host (PIL, as the reference); the uint8
+        pixels go to the card, where the [0, 1] scaling and the ImageNet
+        normalization run."""
+        out = []
+        for p in (pil_A, pil_B):
+            x = torch.from_numpy(np.array(resize(p, hw)))[None].to(self.device)
+            out.append(imagenet_normalize(x.float() / 255.0).to(self.dtype))
+        return tuple(out)
+
+    def _as_batch(self, im):
+        t = im if torch.is_tensor(im) else torch.from_numpy(np.asarray(im, np.float32))
+        t = t.to(self.device, self.dtype)
+        return t[None] if t.ndim == 3 else t
+
+    @torch.inference_mode()
+    def match(self, im_A_input, im_B_input, *, im_A_high_res=None, im_B_high_res=None,
+              gm_logit_bias=None):
+        """Dense two-view match -> (warp, certainty).
+
+        Accepts paths / PIL images (resized on the host) or pre-normalized
+        NHWC arrays or tensors at the coarse resolution. Returns the
+        side-by-side warp (B, H, 2W, 4), (x_A, y_A, x_B, y_B) in [-1, 1], and
+        certainty (B, H, 2W), at ``upsample_res``; a single pair (PIL, path
+        or an HWC array) comes back without the batch axis.
+        """
+        out_hw = self.upsample_res
+        im_A_u = im_B_u = None
+        # inputs of both passes go to the card before the coarse pass: a
+        # pageable copy waits for the card, so one issued later idles it
+        if isinstance(im_A_input, (str, Path, Image.Image)):
+            pil_A, pil_B = load_image(im_A_input), load_image(im_B_input)
+            im_A, im_B = self._prep_pair(pil_A, pil_B, (self.h_resized, self.w_resized))
+            im_A_u, im_B_u = self._prep_pair(pil_A, pil_B, out_hw)
+            unbatch = True
+        else:
+            unbatch = len(im_A_input.shape) == 3
+            im_A, im_B = self._as_batch(im_A_input), self._as_batch(im_B_input)
+            if im_A.shape != im_B.shape or im_A.shape[-1] != 3:
+                raise ValueError(f"array inputs must be NHWC RGB of one size, got "
+                                 f"{tuple(im_A.shape)} and {tuple(im_B.shape)}")
+            if im_A.shape[1] % 14 or im_A.shape[2] % 14:
+                raise ValueError("array inputs must have H, W divisible by 14")
+            if im_A_high_res is not None:
+                im_A_u, im_B_u = self._as_batch(im_A_high_res), self._as_batch(im_B_high_res)
+        if gm_logit_bias is not None:
+            gm_logit_bias = torch.as_tensor(gm_logit_bias, device=self.device, dtype=torch.float32)
+
+        low, flow_fine, cert_fine = self._match_coarse(im_A, im_B, out_hw, gm_logit_bias)
+        if im_A_u is None:  # array input without high-res copies: bicubic upsample
+            im_A_u = interpolate(im_A, out_hw, mode="bicubic")
+            im_B_u = interpolate(im_B, out_hw, mode="bicubic")
+        flow, cert = self._match_upsample(im_A_u, im_B_u, flow_fine, cert_fine)
+        warp, certainty = self._assemble(flow, cert, low)
+        if unbatch:
+            return warp[0], certainty[0]
+        return warp, certainty
+
+    def sample(self, matches, certainty, num: int = 10000, generator: torch.Generator | None = None):
+        """Balanced sparse sampling (reference matcher.py:552-573). Pass a
+        ``generator`` for draws independent of this instance's history."""
+        m = torch.as_tensor(matches).reshape(-1, 4)
+        c = torch.as_tensor(certainty).reshape(-1)
+        return balanced_sample(m, c, num, generator=generator if generator is not None else self.generator,
+                               thresh=self.SAMPLE_THRESH)
+
+    @staticmethod
+    def _to_pixel(coords, h, w):
+        return torch.stack((w / 2 * (coords[..., 0] + 1), h / 2 * (coords[..., 1] + 1)), dim=-1)
+
+    def to_pixel_coordinates(self, coords, H_A, W_A, H_B=None, W_B=None):
+        coords = torch.as_tensor(coords)
+        if coords.shape[-1] == 2:
+            return self._to_pixel(coords, H_A, W_A)
+        return self._to_pixel(coords[..., :2], H_A, W_A), self._to_pixel(coords[..., 2:], H_B, W_B)
+
+    def to_normalized_coordinates(self, coords, H_A, W_A, H_B, W_B):
+        if isinstance(coords, (list, tuple)):
+            k_A, k_B = torch.as_tensor(coords[0]), torch.as_tensor(coords[1])
+        else:
+            coords = torch.as_tensor(coords)
+            k_A, k_B = coords[..., :2], coords[..., 2:]
+        k_A = torch.stack((2 / W_A * k_A[..., 0] - 1, 2 / H_A * k_A[..., 1] - 1), dim=-1)
+        k_B = torch.stack((2 / W_B * k_B[..., 0] - 1, 2 / H_B * k_B[..., 1] - 1), dim=-1)
+        return k_A, k_B

@@ -1,0 +1,33 @@
+"""Coordinate-grid helpers (counterpart of roma_tpu/ops/coords.py).
+
+Warps use the normalized convention: coordinates in [-1, 1]^2, (x, y)
+channel order, pixel centers of an axis of length n at
+linspace(-1 + 1/n, 1 - 1/n, n). Flows are channel-last ``(B, H, W, 2)``.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=64)
+def _grid_np(h: int, w: int) -> np.ndarray:
+    ys = np.linspace(-1 + 1 / h, 1 - 1 / h, h, dtype=np.float32)
+    xs = np.linspace(-1 + 1 / w, 1 - 1 / w, w, dtype=np.float32)
+    gy, gx = np.meshgrid(ys, xs, indexing="ij")
+    return np.stack((gx, gy), axis=-1)  # (h, w, 2), xy order
+
+
+@functools.lru_cache(maxsize=64)
+def _grid_on(h: int, w: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_grid_np(h, w)).to(device)
+
+
+def normalized_grid(h: int, w: int, device=None) -> torch.Tensor:
+    """(h, w, 2) float32 grid of normalized pixel-center coordinates, (x, y)
+    order. Cached per device, so the match path makes no host-to-device copy
+    (a pageable copy would stall the host until the card catches up); the
+    tensor is shared, so callers must not write to it."""
+    return _grid_on(h, w, torch.device(device if device is not None else "cpu"))

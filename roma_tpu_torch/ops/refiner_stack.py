@@ -1,0 +1,95 @@
+"""Kernel D: the narrow ConvRefiner stack with BatchNorm folded in.
+
+Replaces roma_tpu/ops/pallas_refiner.py:_cmajor_kernel (entry
+``fused_refiner_stack``, routed at roma_tpu/models/matcher.py:265-275 for
+inference when hidden_dim <= 32: the scale-1 refiner, C=24). One folded
+block is a depthwise KxK conv with the BatchNorm folded in (:func:`fold_block`),
+bias, ReLU and a round to the I/O dtype, then a CxC 1x1 conv, bias and a
+round, with zero SAME padding.
+
+On the H100 the kernel (csrc/refiner_stack.cu) runs once per folded block;
+its design note is in the source. A CPU tensor takes the plain version
+:func:`refiner_stack_reference`.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .. import _ext
+
+BN_EPS = 1e-5
+MAX_C = 32  # widest stack the kernel takes; the routing bound in models/matcher.py
+
+
+def fold_block(dw_weight, dw_bias, bn_weight, bn_bias, bn_mean, bn_var, pw_weight, pw_bias):
+    """Fold inference BatchNorm into the depthwise conv, all in float32.
+
+    Takes torch layouts: dw_weight (C, 1, K, K), pw_weight (C_out, C_in, 1, 1).
+    Returns dict(dw=(K, K, C), db=(C,), w2=(C_in, C_out), b2=(C,)), the layout
+    of roma_tpu/ops/pallas_refiner.py:fold_block.
+    """
+    s = bn_weight.float() * torch.rsqrt(bn_var.float() + BN_EPS)
+    dw = dw_weight.float()[:, 0].permute(1, 2, 0)  # (K, K, C)
+    db = (dw_bias.float() - bn_mean.float()) * s + bn_bias.float()
+    w2 = pw_weight.float()[:, :, 0, 0].T
+    return dict(dw=(dw * s).contiguous(), db=db.contiguous(), w2=w2.contiguous(),
+                b2=pw_bias.float().contiguous())
+
+
+def fold_refiner(block1, hidden_blocks) -> list[dict]:
+    """Folded blocks of a ConvRefiner's ``block1`` and ``hidden_blocks``
+    (each nn.Sequential(conv KxK depthwise, BatchNorm2d, ReLU, conv 1x1))."""
+    def fold(seq):
+        conv1, bn, _, conv2 = seq
+        return fold_block(conv1.weight, conv1.bias, bn.weight, bn.bias,
+                          bn.running_mean, bn.running_var, conv2.weight, conv2.bias)
+    return [fold(block1)] + [fold(blk) for blk in hidden_blocks]
+
+
+def refiner_stack_reference(x: torch.Tensor, blocks: list[dict]) -> torch.Tensor:
+    """Plain PyTorch version, folded math in float32 with the I/O-dtype
+    rounding after each stage (the TPU kernel's stores)."""
+    dt = x.dtype
+    c = x.shape[-1]
+    y = x.permute(0, 3, 1, 2)
+    for blk in blocks:
+        k = blk["dw"].shape[0]
+        wdw = blk["dw"].permute(2, 0, 1)[:, None]  # (C, 1, K, K)
+        t = F.conv2d(y.float(), wdw, blk["db"], padding=k // 2, groups=c)
+        t = torch.relu(t).to(dt).float()
+        y = F.conv2d(t, blk["w2"].T[:, :, None, None], blk["b2"]).to(dt)
+    return y.permute(0, 2, 3, 1)
+
+
+def fused_refiner_stack(x: torch.Tensor, blocks: list[dict]) -> torch.Tensor:
+    """Run a chain of folded refiner blocks on x (B, H, W, C), C <= 32 on CUDA."""
+    if x.device.type == "cpu":
+        return refiner_stack_reference(x, blocks)
+    what = "fused_refiner_stack"
+    _ext.require_cuda(what, x)
+    b, h, w, c = x.shape
+    if c > MAX_C:
+        raise ValueError(f"{what}: C={c} above the kernel's {MAX_C}")
+    code = _ext.dtype_code(x, what)
+    lib = _ext.lib()
+    bufs = [torch.empty_like(x), torch.empty_like(x)]
+    for i, blk in enumerate(blocks):
+        k = blk["dw"].shape[0]
+        ws = [blk[n] for n in ("dw", "db", "w2", "b2")]
+        _ext.require_cuda(what, x, *ws)
+        shapes = [tuple(t.shape) for t in ws]
+        if any(t.dtype != torch.float32 for t in ws) or shapes != [(k, k, c), (c,), (c, c), (c,)]:
+            raise ValueError(f"{what}: folded block {i} must be float32 dw (K, K, C), db (C,), "
+                             f"w2 (C, C), b2 (C,); got {shapes}")
+        out = bufs[i % 2]
+        rc = lib.roma_refiner_block(
+            x.data_ptr(), *(t.data_ptr() for t in ws), out.data_ptr(), b, h, w, c, k, code, _ext.stream()
+        )
+        _ext.check(rc, what)
+        fused_refiner_stack.launches += 1
+        x = out
+    return x
+
+
+fused_refiner_stack.launches = 0

@@ -1,0 +1,76 @@
+"""The port stands alone: it imports no JAX, Flax or roma_tpu, and on CPU
+tensors every kernel wrapper runs its plain version without launching."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+import roma_tpu_torch
+from roma_tpu_torch.ops import (
+    KERNEL_WRAPPERS,
+    attention_packed_reference,
+    fold_block,
+    fused_attention_packed,
+    fused_refiner_stack,
+    local_correlation,
+    local_correlation_reference,
+    refiner_stack_reference,
+    warp_sample,
+    warp_sample_reference,
+)
+
+PKG = Path(roma_tpu_torch.__file__).parent
+BANNED = ("jax", "jaxlib", "flax", "roma_tpu")
+
+
+def test_imports_and_matches_with_jax_blocked():
+    code = (
+        "import sys\n"
+        f"for m in {BANNED!r}: sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from roma_tpu_torch import roma_outdoor, RoMaConfig\n"
+        "m = roma_outdoor(amp=False, coarse_res=56, upsample_res=64, config=RoMaConfig.tiny())\n"
+        "rs = np.random.RandomState(0)\n"
+        "w, c = m.match(rs.randn(56, 56, 3).astype('float32'), rs.randn(56, 56, 3).astype('float32'))\n"
+        "assert tuple(w.shape) == (64, 128, 4) and tuple(c.shape) == (64, 128)\n"
+        "loaded = [k for k, v in sys.modules.items() if v is not None]\n"
+        "assert not any(k == b or k.startswith(b + '.') for k in loaded for b in ('roma_tpu', 'flax'))\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PKG.parent, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_no_source_imports_jax():
+    offenders = []
+    for f in sorted(PKG.rglob("*.py")):
+        for node in ast.walk(ast.parse(f.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            offenders += [f"{f.name}: {n}" for n in names if n.split(".")[0] in BANNED]
+    assert not offenders, offenders
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    rs = np.random.RandomState(0)
+    t = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32))
+    counts = [f.launches for f in KERNEL_WRAPPERS]
+
+    qkv = t(2, 70, 3 * 128)
+    assert torch.equal(fused_attention_packed(qkv, 2, 60), attention_packed_reference(qkv, 2, 60))
+    f0, f1, flow = t(2, 9, 11, 16), t(2, 9, 11, 16), t(2, 9, 11, 2) * 0.5
+    assert torch.equal(local_correlation(f0, f1, 2, flow), local_correlation_reference(f0, f1, 2, flow))
+    assert torch.equal(warp_sample(f1, flow), warp_sample_reference(f1, flow))
+    c = 8
+    blocks = [fold_block(t(c, 1, 5, 5), t(c), t(c), t(c), t(c), t(c).abs() + 0.5, t(c, c, 1, 1), t(c))]
+    x = t(2, 9, 11, c)
+    assert torch.equal(fused_refiner_stack(x, blocks), refiner_stack_reference(x, blocks))
+    assert [f.launches for f in KERNEL_WRAPPERS] == counts == [0, 0, 0, 0]
