@@ -4,18 +4,27 @@
     python3 chip_smoke.py
 
 1. Builds the hand-written CUDA kernels from roma_tpu_torch/csrc (nvcc,
-   sm_90a) and prints the build time.
+   sm_90a, one nvcc per source in parallel) and prints the build time.
 2. Checks each kernel against its plain PyTorch version at the shapes the
-   560 -> 864 match gives it, in bfloat16 and in float32, and times both
-   with CUDA events (median of 20 calls).
+   560 -> 864 match and the 560^2 training step give it, in bfloat16 and in
+   float32, and times both with CUDA events (median of 20 calls).
 3. Checks the whole match on a small configuration: the kernel path on the
    card against the plain path on the CPU, same weights, float32.
 4. Builds roma_outdoor at the released widths on seeded random weights
    (bf16 amp, 560 -> 864, symmetric), answers 3 match requests on seeded
    synthetic image pairs, samples 5000 matches from each, and checks shapes,
-   finiteness, sample range and that every kernel launched during them.
-5. Prints one JSON line of per-kernel results, the card's name and power
-   limit, and as the last line {"ok": true, "device": {...}}.
+   finiteness, sample range and that every kernel of the match launched.
+5. Checks one training step on the small configuration: the kernel path on
+   the card against the plain path on the CPU, float32.
+6. Trains the released widths (DINOv2 frozen, bf16 autocast over float32
+   parameters, 560^2, batch 4, the recipe's losses and optimizer) for 5
+   steps on synthetic batches, and checks the losses, the gradients, the
+   frozen backbone, the updates and the kernel launches.
+7. Runs the per-head attention op (ops.sdpa) forward and backward as a
+   caller does, at the DINOv2 shape.
+8. Prints one JSON line of per-kernel results (each kernel's launches are
+   counted over the phase of 4, 6 or 7 that runs it), the card's name and
+   power limit, and as the last line {"ok": true, "device": {...}}.
 
 Any failure exits non-zero before the last line is printed. Without a CUDA
 device it exits non-zero at once.
@@ -24,6 +33,7 @@ from __future__ import annotations
 
 import importlib.metadata
 import json
+import math
 import os
 import subprocess
 import sys
@@ -54,7 +64,15 @@ KERNEL_INFO = {
     "local_correlation": ("roma_tpu_torch/csrc/local_corr.cu", "roma_tpu/ops/tile_window.py:516"),
     "warp_sample": ("roma_tpu_torch/csrc/warp_sample.cu", "roma_tpu/ops/lane_warp.py:106"),
     "fused_refiner_stack": ("roma_tpu_torch/csrc/refiner_stack.cu", "roma_tpu/ops/pallas_refiner.py:111"),
+    "fused_attention_backward": ("roma_tpu_torch/csrc/attention_bwd.cu", "roma_tpu/ops/pallas_attention.py:79"),
+    "fused_attention": ("roma_tpu_torch/csrc/attention.cu", "roma_tpu/ops/pallas_attention.py:54"),
 }
+# the kernels each driven phase must launch; the training step must launch
+# none of the forward-only ones
+MATCH_KERNELS = ("fused_attention_packed", "local_correlation", "warp_sample", "fused_refiner_stack")
+TRAIN_KERNELS = ("fused_attention_packed", "fused_attention_backward")
+FORWARD_ONLY = ("local_correlation", "warp_sample", "fused_refiner_stack")
+SDPA_KERNELS = ("fused_attention", "fused_attention_backward")
 
 
 def smi_line() -> str:
@@ -153,33 +171,93 @@ def kernel_cases(gen, dt):
     return out
 
 
+def check_output(name, label, dt, k, p, what: str = "") -> float:
+    """Hold one kernel output to its plain version with the tolerances
+    above; print the comparison and return the error."""
+    import torch
+
+    torch.cuda.synchronize()
+    k, p = k.float(), p.float()
+    require(k.shape == p.shape, f"{name} {label}: shape {tuple(k.shape)} vs {tuple(p.shape)}")
+    require(bool(torch.isfinite(k).all()), f"{name} {label}: non-finite kernel output")
+    err, scale = (k - p).abs().max().item(), p.abs().max().item()
+    tol = F32_REL * max(1.0, scale) if dt == torch.float32 else BF16_REL * scale + BF16_ABS
+    print(f"{name:24s} {label:30s} {str(dt)[6:]:8s} {what}max|k-p| {err:.3e} "
+          f"(tol {tol:.3e}, max|p| {scale:.3g})", flush=True)
+    require(err <= tol, f"{name} {label} {dt} {what}: kernel disagrees with its plain version")
+    return err
+
+
+def record(r, err, kern, plain, label):
+    """Add a bf16 case's CUDA-event medians and error to a kernel's row."""
+    ms, pms = cuda_ms(kern), cuda_ms(plain)
+    r["ms"] += ms
+    r["plain_ms"] += pms
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    print(f"{r['name']:24s} {label:30s} bf16     kernel {ms:.4f} ms  plain {pms:.4f} ms", flush=True)
+
+
 def check_kernels(results):
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dt in (torch.float32, torch.bfloat16):
         for name, label, kern, plain, rows in kernel_cases(gen, dt):
-            k, p = kern(), plain()
-            torch.cuda.synchronize()
-            k, p = k[:, :rows].float(), p[:, :rows].float()
-            require(k.shape == p.shape, f"{name} {label}: shape {tuple(k.shape)} vs {tuple(p.shape)}")
-            require(bool(torch.isfinite(k).all()), f"{name} {label}: non-finite kernel output")
-            err, scale = (k - p).abs().max().item(), p.abs().max().item()
-            if dt == torch.float32:
-                tol = F32_REL * max(1.0, scale)
-            else:
-                tol = BF16_REL * scale + BF16_ABS
-            ok = err <= tol
-            line = f"{name:24s} {label:30s} {str(dt)[6:]:8s} max|k-p| {err:.3e} (tol {tol:.3e}, max|p| {scale:.3g})"
-            r = results[name]
+            err = check_output(name, label, dt, kern()[:, :rows], plain()[:, :rows])
             if dt == torch.bfloat16:
-                ms, pms = cuda_ms(kern), cuda_ms(plain)
-                r["ms"] += ms
-                r["plain_ms"] += pms
-                r["max_abs_err"] = max(r["max_abs_err"], err)
-                line += f"  kernel {ms:.4f} ms  plain {pms:.4f} ms"
-            print(line, flush=True)
-            require(ok, f"{name} {label} {dt}: kernel disagrees with its plain version")
+                record(results[name], err, kern, plain, label)
+
+
+# the attention shapes of the training step and the match: the decoder's,
+# DINOv2's, and a padded sequence with the n_valid key mask
+ATTN_SHAPES = (("decoder N1600 8x128", 4, 1600, 8, 128, None),
+               ("dinov2 N1601 16x64", 8, 1601, 16, 64, None),
+               ("dinov2 N1664 n_valid 1601", 8, 1664, 16, 64, 1601))
+
+
+def check_attention_kernels(results):
+    """Kernel E against its plain backward on the packed layout the training
+    step hands it (dq, dk, dv reported apart), and Kernel A's per-head entry
+    against the einsum sdpa, at ATTN_SHAPES in both dtypes."""
+    import torch
+
+    from roma_tpu_torch import ops
+    from roma_tpu_torch.ops.fused_attention import _heads, _packed_forward, _qkv_heads
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for dt in (torch.float32, torch.bfloat16):
+        rn = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dt)
+        for label, b, n, h, d, nv in ATTN_SHAPES:
+            c = h * d
+            qkv = 0.5 * rn(b, n, 3 * c)
+            qkv[:, nv or n:] *= 5.0  # padded-token content must be inert
+            out, lse = _packed_forward(qkv, h, nv, with_lse=True)
+            dout = rn(b, n, c)
+            dqkv = torch.empty_like(qkv)
+            q, k, v = _qkv_heads(qkv, h)
+            grads = _qkv_heads(dqkv, h)
+            kern = lambda: ops.fused_attention_backward(q, k, v, _heads(out, h), lse, _heads(dout, h),
+                                                        *grads, n_valid=nv)
+            plain = lambda: ops.attention_backward_reference(q, k, v, _heads(dout, h), nv)
+            kern()
+            refs = plain()
+            errs = [check_output("fused_attention_backward", label, dt, got, ref, f"{gname} ")
+                    for gname, got, ref in zip(("dq", "dk", "dv"), grads, refs)]
+            del refs
+            if dt == torch.bfloat16:
+                record(results["fused_attention_backward"], max(errs), kern, plain, label)
+
+            qh, kh, vh = (0.5 * rn(b, h, n, d) for _ in range(3))
+            for t in (qh, kh, vh):
+                t[:, :, nv or n:] *= 5.0
+            kern = lambda: ops.fused_attention(qh, kh, vh, nv)
+            plain = lambda: ops.sdpa_reference(qh, kh, vh, nv)
+            rows = nv or n
+            err = check_output("fused_attention", label, dt, kern()[:, :, :rows], plain()[:, :, :rows])
+            if dt == torch.bfloat16:
+                record(results["fused_attention"], err, kern, plain, label)
+            del qkv, out, lse, dout, dqkv
+            torch.cuda.empty_cache()
 
 
 def peaked_bias(b, h, w, res, amp=14.0):
@@ -201,6 +279,20 @@ def peaked_bias(b, h, w, res, amp=14.0):
     return out
 
 
+def small_config():
+    """RoMaConfig.tiny() with head dims of 64, which Kernels A and E take."""
+    from roma_tpu_torch.models import RoMaConfig
+
+    return RoMaConfig(
+        vgg_channels=((8, 8), (16, 16), (16, 16, 16, 16), (24, 24, 24, 24)),
+        dino_dim=128, dino_depth=2, dino_heads=2, gp_dim=64, cls_res=16,
+        decoder_depth=2, decoder_heads=2,
+        proj_out=((16, 64), (8, 16), (4, 16), (2, 16), (1, 9)),
+        disp_emb=((16, 8), (8, 8), (4, 8), (2, 8), (1, 6)),
+        corr_radius=((16, 7), (8, 3), (4, 2), (2, 0), (1, 0)), hidden_blocks=2,
+    )
+
+
 def check_small_match():
     """The whole match on a small configuration: kernels on the card against
     the plain versions on the CPU, one set of weights, float32."""
@@ -209,18 +301,10 @@ def check_small_match():
     import numpy as np
     import torch
 
-    from roma_tpu_torch.models import RegressionMatcher, RoMaConfig
+    from roma_tpu_torch.models import RegressionMatcher
     from roma_tpu_torch.models.zoo import build_net, init_random
 
-    # RoMaConfig.tiny() with head dims of 64, which Kernel A takes
-    cfg = RoMaConfig(
-        vgg_channels=((8, 8), (16, 16), (16, 16, 16, 16), (24, 24, 24, 24)),
-        dino_dim=128, dino_depth=2, dino_heads=2, gp_dim=64, cls_res=16,
-        decoder_depth=2, decoder_heads=2,
-        proj_out=((16, 64), (8, 16), (4, 16), (2, 16), (1, 9)),
-        disp_emb=((16, 8), (8, 8), (4, 8), (2, 8), (1, 6)),
-        corr_radius=((16, 7), (8, 3), (4, 2), (2, 0), (1, 0)), hidden_blocks=2,
-    )
+    cfg = small_config()
     net = init_random(build_net(cfg, "cpu"), seed=1, std=0.1).eval()
     rs = np.random.RandomState(2)
     a, b = (rs.randn(112, 112, 3).astype(np.float32) for _ in range(2))
@@ -236,24 +320,225 @@ def check_small_match():
     require(wg.shape == (128, 256, 4) and ew <= 1e-3 and ec <= 1e-3, "small-config match disagrees")
 
 
+def texture(rs, h, w):
+    """(h, w, 3) float32 in [0, 1]: coloured blobs and a sine pattern."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.zeros((h, w, 3), np.float32)
+    scale = min(h, w) / 720
+    for _ in range(60):
+        cy, cx, r = rs.uniform(0, h), rs.uniform(0, w), scale * rs.uniform(10, 80)
+        img += rs.uniform(0, 1, 3) * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * r * r))[..., None]
+    img += 0.15 * np.sin(xx / rs.uniform(5, 20))[..., None] * np.cos(yy / rs.uniform(5, 20))[..., None]
+    return np.clip(img / img.max(), 0, 1)
+
+
 def synthetic_pair(seed: int, hw=(720, 960)):
     """A textured image and a warped copy of it (rotation, scale, shift)."""
     import numpy as np
     from PIL import Image
 
     rs = np.random.RandomState(seed)
-    h, w = hw
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    img = np.zeros((h, w, 3), np.float32)
-    for _ in range(60):
-        cy, cx, r = rs.uniform(0, h), rs.uniform(0, w), rs.uniform(10, 80)
-        img += rs.uniform(0, 1, 3) * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * r * r))[..., None]
-    img += 0.15 * np.sin(xx / rs.uniform(5, 20))[..., None] * np.cos(yy / rs.uniform(5, 20))[..., None]
-    img = np.clip(img / img.max(), 0, 1)
-    im_a = Image.fromarray((img * 255).astype(np.uint8))
+    im_a = Image.fromarray((texture(rs, *hw) * 255).astype(np.uint8))
     im_b = im_a.rotate(rs.uniform(-15, 15), resample=Image.BICUBIC,
                        translate=(rs.uniform(-40, 40), rs.uniform(-40, 40)))
     return im_a, im_b
+
+
+def synthetic_train_batch(b: int, hw: int, seed: int, device):
+    """A training batch: textured ImageNet-normalized images with B equal to
+    A, one smooth positive depth map for both, identity pose, a pinhole K.
+    The GT warp is then the identity, valid over all but the last row and
+    column, so every loss term is active."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(seed)
+    mean, std = np.array([0.485, 0.456, 0.406], np.float32), np.array([0.229, 0.224, 0.225], np.float32)
+    ims = np.stack([(texture(rs, hw, hw) - mean) / std for _ in range(b)]).astype(np.float32)
+    yy, xx = np.mgrid[0:hw, 0:hw].astype(np.float32) / hw
+    depth = 3.0 + 0.5 * np.sin(2 * np.pi * xx * rs.uniform(0.5, 1.5)) * np.cos(2 * np.pi * yy * rs.uniform(0.5, 1.5))
+    K = np.array([[0.8 * hw, 0, hw / 2], [0, 0.8 * hw, hw / 2], [0, 0, 1]], np.float32)
+    batch = {"im_A": ims, "im_B": ims.copy(),
+             "im_A_depth": np.repeat(depth[None], b, 0).astype(np.float32),
+             "T_1to2": np.tile(np.eye(4, dtype=np.float32), (b, 1, 1)),
+             "K1": np.tile(K, (b, 1, 1))}
+    batch["im_B_depth"] = batch["im_A_depth"].copy()
+    batch["K2"] = batch["K1"].copy()
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def zero_counts():
+    from roma_tpu_torch.ops import KERNEL_WRAPPERS
+
+    for f in KERNEL_WRAPPERS:
+        f.launches = 0
+
+
+def read_counts() -> dict:
+    from roma_tpu_torch.ops import KERNEL_WRAPPERS
+
+    return {f.__name__: f.launches for f in KERNEL_WRAPPERS}
+
+
+# ReLU kinks: an activation within float32 noise of 0 takes the other branch
+# on the other side, which moves the gradients of the layers around it by a
+# few percent of their own largest entry (measured on the CPU, the port
+# against itself at 1 and 8 threads). So each gradient leaf is held to 1e-3
+# of the largest gradient entry of the model, and the leaves no ReLU mask
+# reaches in practice (TransformerDecoder, GP) to 1e-3 of their own.
+KINK_FREE = ("decoder.embedding_decoder.", "decoder.gps.")
+
+
+def check_small_train():
+    """One training step on the small configuration: kernels on the card
+    against the plain versions on the CPU, same weights, batch and peaked
+    anchor bias, float32. Loss, every gradient leaf, BatchNorm running stats
+    and parameters after the step must agree within 1e-3 of each quantity's
+    largest magnitude: the loss's, the model gradient's (KINK_FREE leaves:
+    their own), each running buffer's, and the parameters'. Parameters are
+    held as a whole because AdamW's first step lr * g / (|g| + 1e-8) makes a
+    zero-initialized bias whose gradient is float noise (a conv bias in
+    front of a BatchNorm) +-lr on either side."""
+    import copy
+
+    import torch
+
+    from roma_tpu_torch.models.zoo import build_net, init_random
+    from roma_tpu_torch.train import RobustLosses, make_optimizer, make_train_step
+
+    cfg = small_config()
+    net = init_random(build_net(cfg, "cpu"), seed=1, std=0.1).train()
+    batch = synthetic_train_batch(2, 112, 5, "cpu")
+    # the peaked bias keeps the coarse argmax off near-ties, where one flip
+    # would make the two sides' losses and gradients diverge
+    bias = torch.from_numpy(peaked_bias(2, 8, 8, cfg.cls_res))
+    runs = []
+    for dev, n in (("cpu", net), ("cuda", copy.deepcopy(net).to("cuda"))):
+        opt = make_optimizer(n, encoder_lr=2 * 5e-6 / 8, decoder_lr=2 * 1e-4 / 8, milestones=(1000,))
+        b = bias.to(dev)
+        step = make_train_step(n, RobustLosses(), opt, forward=lambda n, x, b=b: n(x["im_A"], x["im_B"], gm_logit_bias=b))
+        zero_counts()
+        metrics = step({k: v.to(dev) for k, v in batch.items()})
+        counts = read_counts()
+        grads = {k: p.grad.cpu() for k, p in n.named_parameters() if p.grad is not None}
+        runs.append((metrics["loss"].item(), grads, {k: v.cpu() for k, v in n.state_dict().items()}, counts))
+    (lc, gc, sc, _), (lg, gg, sg, counts) = runs
+    require(counts["fused_attention_backward"] == cfg.decoder_depth
+            and counts["fused_attention_packed"] == cfg.decoder_depth + cfg.dino_depth
+            and all(counts[k] == 0 for k in FORWARD_ONLY),
+            f"small train step launches {counts}")
+    gmax = max(g.abs().max().item() for g in gc.values())
+    pmax = max(v.abs().max().item() for k, v in sc.items() if v.is_floating_point() and "running_" not in k)
+    worst = {"loss": abs(lg - lc) / abs(lc), "grad (of the model's max)": 0.0, "grad kink-free (own max)": 0.0,
+             "bn stats (own max)": 0.0, "params (of the model's max)": 0.0}
+    for k, g in gc.items():
+        e = (gg[k] - g).abs().max().item()
+        worst["grad (of the model's max)"] = max(worst["grad (of the model's max)"], e / gmax)
+        if k.startswith(KINK_FREE):
+            worst["grad kink-free (own max)"] = max(worst["grad kink-free (own max)"], e / g.abs().max().item())
+    for k, v in sc.items():
+        if not v.is_floating_point():
+            continue
+        e = (sg[k] - v).abs().max().item()
+        if k.endswith(("running_mean", "running_var")):
+            worst["bn stats (own max)"] = max(worst["bn stats (own max)"], e / v.abs().max().item())
+        else:
+            worst["params (of the model's max)"] = max(worst["params (of the model's max)"], e / pmax)
+    print("small train step 112^2 f32, cuda kernels vs cpu plain, worst error over each quantity's "
+          "largest magnitude: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f"; loss {lg:.6f} vs {lc:.6f}; launches {counts}", flush=True)
+    require(all(v <= 1e-3 for v in worst.values()), "small-config train step disagrees")
+
+
+def train_full_width(results, steps: int = 5, batch_size: int = 4, hw: int = 560):
+    """The recipe's training at released widths: RoMaConfig() on seeded
+    random weights, DINOv2 frozen, bf16 autocast over float32 parameters,
+    560^2 non-symmetric, RobustLosses, the batch-scaled AdamW recipe."""
+    import torch
+
+    from roma_tpu_torch.models import train_net
+    from roma_tpu_torch.train import RobustLosses, get_gt_warp, make_optimizer, make_train_step
+
+    t0 = time.perf_counter()
+    net = train_net(device="cuda", seed=0)
+    n_steps = 8_000_000 // batch_size  # experiments/train_roma_outdoor.py:58-60
+    opt = make_optimizer(net, encoder_lr=batch_size * 5e-6 / 8, decoder_lr=batch_size * 1e-4 / 8,
+                         milestones=(int(0.9 * n_steps),))
+    step = make_train_step(net, RobustLosses(), opt, amp_dtype=torch.bfloat16)
+    batches = [synthetic_train_batch(batch_size, hw, 10 + i, "cuda") for i in range(steps)]
+    frozen = {k: p.detach().clone() for k, p in net.named_parameters() if not p.requires_grad}
+    before = {k: p.detach().clone() for k, p in net.named_parameters() if p.requires_grad}
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for p in before.values())
+    print(f"train_net(RoMaConfig(), 560^2, bf16 autocast, batch {batch_size}): "
+          f"{n_train + sum(p.numel() for p in frozen.values())} parameters, {n_train} trainable, "
+          f"built in {time.perf_counter() - t0:.2f} s", flush=True)
+    b0 = batches[0]
+    share = {s: get_gt_warp(b0["im_A_depth"], b0["im_B_depth"], b0["T_1to2"], b0["K1"], b0["K2"],
+                            H=hw // (14 if s == 16 else s), W=hw // (14 if s == 16 else s))[1].mean().item()
+             for s in (16, 8, 4, 2, 1)}
+    print("GT warp valid share per scale: " + " ".join(f"{s}: {v:.4f}" for s, v in share.items()))
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times = []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        m = step(batch)
+        loss, gnorm, nonfinite = m["loss"].item(), m["grad_norm"].item(), m["nonfinite_grads"].item()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        print(f"train step {i}: loss {loss:.6f} grad_norm {gnorm:.6e} nonfinite_grads {nonfinite:.0f} "
+              f"gm_cls_loss_16 {m['gm_cls_loss_16'].item():.4f} "
+              f"delta_regression_loss_1 {m['delta_regression_loss_1'].item():.6f} "
+              f"time {times[-1]:.4f} s", flush=True)
+        require(math.isfinite(loss) and math.isfinite(gnorm), f"train step {i}: non-finite loss or grad norm")
+        require(nonfinite == 0, f"train step {i}: {nonfinite} non-finite gradient leaves")
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"kernel launches during the {steps} training steps: {counts}")
+    print("train step time s: " + " ".join(f"{t:.4f}" for t in times))
+    print(f"samples/s after the first step: {batch_size * (steps - 1) / sum(times[1:]):.4f}")
+    print(f"peak device memory allocated during training: {peak} bytes ({peak / 2**30:.3f} GiB)")
+    print(f"card: {smi_line()}", flush=True)
+    params = dict(net.named_parameters())
+    require(all(torch.equal(params[k], v) for k, v in frozen.items()) and len(frozen) > 0,
+            "DINOv2 parameters moved")
+    groups = ["encoder.cnn", "decoder.embedding_decoder", "decoder.gps", "decoder.proj",
+              *(f"decoder.conv_refiner.{s}" for s in (16, 8, 4, 2, 1))]
+    unchanged = [g for g in groups
+                 if not any(not torch.equal(params[k], v) for k, v in before.items() if k.startswith(g + "."))]
+    require(not unchanged, f"parameter groups the steps left unchanged: {unchanged}")
+    cfg = net.config
+    require(counts["fused_attention_backward"] == cfg.decoder_depth * steps,
+            f"Kernel E launched {counts['fused_attention_backward']} times, not {cfg.decoder_depth * steps}")
+    require(counts["fused_attention_packed"] == (cfg.decoder_depth + cfg.dino_depth) * steps,
+            f"Kernel A launched {counts['fused_attention_packed']} times")
+    require(all(counts[k] == 0 for k in FORWARD_ONLY), f"forward-only kernels launched in training: {counts}")
+    results["fused_attention_backward"]["launches"] = counts["fused_attention_backward"]
+
+
+def run_sdpa_path(results):
+    """The per-head attention op as a caller uses it: ops.sdpa forward and
+    backward at the DINOv2 shape, bf16."""
+    import torch
+
+    from roma_tpu_torch import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn(8, 16, 1601, 64, generator=gen, device="cuda").to(torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    zero_counts()
+    out = ops.sdpa(q, k, v)
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"ops.sdpa forward + backward (8, 16, 1601, 64) bf16: launches {counts}", flush=True)
+    require(all(counts[k] >= 1 for k in SDPA_KERNELS), f"sdpa path launches {counts}")
+    require(all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v)), "non-finite sdpa gradients")
+    results["fused_attention"]["launches"] = counts["fused_attention"]
 
 
 def main() -> int:
@@ -264,7 +549,6 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from roma_tpu_torch import _ext
     from roma_tpu_torch.models.zoo import roma_outdoor
-    from roma_tpu_torch.ops import KERNEL_WRAPPERS
 
     card = smi_line()
     nvcc = subprocess.run([_ext.nvcc_path(), "--version"], capture_output=True, text=True).stdout
@@ -290,6 +574,7 @@ def main() -> int:
         for name, (src, rep) in KERNEL_INFO.items()
     }
     check_kernels(results)
+    check_attention_kernels(results)
     check_small_match()
 
     t0 = time.perf_counter()
@@ -302,8 +587,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(0)
     latencies = []
-    for f in KERNEL_WRAPPERS:
-        f.launches = 0
+    zero_counts()
     for im_a, im_b in pairs:
         t0 = time.perf_counter()
         warp, cert = model.match(im_a, im_b)
@@ -317,17 +601,26 @@ def main() -> int:
         require(tuple(matches.shape) == (5000, 4) and matches.abs().max().item() <= 1.0,
                 "samples must be (5000, 4) in [-1, 1]")
         require(bool(torch.isfinite(kpts_a).all() and torch.isfinite(kpts_b).all()), "non-finite keypoints")
-    launches = {f.__name__: f.launches for f in KERNEL_WRAPPERS}
-    for name, n in launches.items():
-        results[name]["launches"] = n
+    launches = read_counts()
+    for name in MATCH_KERNELS:
+        results[name]["launches"] = launches[name]
     print(f"kernel launches during the 3 requests: {launches}")
     peak = torch.cuda.max_memory_allocated()
     print("request latency s: " + " ".join(f"{t:.4f}" for t in latencies))
     print(f"pairs/s after the first request: {(len(latencies) - 1) / sum(latencies[1:]):.4f}")
     print(f"peak device memory allocated: {peak} bytes ({peak / 2**30:.3f} GiB)")
     print(f"certainty mean {cert.mean().item():.4f}, warp range [{warp.min().item():.3f}, {warp.max().item():.3f}]")
-    missing = [n for n, c in launches.items() if c == 0]
+    missing = [n for n in MATCH_KERNELS if launches[n] == 0]
     require(not missing, f"kernels not launched on the main path: {missing}")
+    del model, warp, cert, matches
+    torch.cuda.empty_cache()
+
+    check_small_train()
+    train_full_width(results)
+    torch.cuda.empty_cache()
+    run_sdpa_path(results)
+    missing = [n for n, r in results.items() if r["launches"] == 0]
+    require(not missing, f"kernels never launched: {missing}")
 
     torch.cuda.synchronize()
     print(json.dumps({"kernels": list(results.values())}))

@@ -30,10 +30,12 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC",
 ]
 
-P, I = ctypes.c_void_p, ctypes.c_int
-# entry point -> argument types (all return int = cudaError_t)
+P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# entry point -> argument types (all return int = cudaError_t); the six L of
+# the attention entries are the (batch, head, row) strides of two views
 SIGNATURES = {
-    "roma_attention_packed": [P, P, I, I, I, I, I, I, P],
+    "roma_attention_fwd": [P, P, P, P, P, I, I, I, I, I, L, L, L, L, L, L, I, P],
+    "roma_attention_bwd": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, L, L, L, L, L, L, I, P],
     "roma_local_corr": [P, P, P, P, I, I, I, I, I, I, P],
     "roma_warp_sample": [P, P, P, I, I, I, I, I, I, I, P],
     "roma_refiner_block": [P, P, P, P, P, P, I, I, I, I, I, I, P],
@@ -136,13 +138,16 @@ def dtype_code(t: torch.Tensor, what: str) -> int:
     return DTYPE_CODES[t.dtype]
 
 
-def require_cuda(what: str, *tensors: torch.Tensor):
-    """Device and layout checks shared by every kernel wrapper."""
+def require_cuda(what: str, *tensors: torch.Tensor, strided: bool = False):
+    """Device and layout checks shared by every kernel wrapper. ``strided``
+    admits views whose last dim is contiguous (the kernel takes the other
+    strides as arguments); otherwise every tensor must be contiguous."""
     dev = tensors[0].device
     for t in tensors:
         if not t.is_cuda or t.device != dev:
             raise ValueError(f"{what}: all tensors must be on one CUDA device")
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: tensors must be contiguous")
+        if not (t.stride(-1) == 1 if strided else t.is_contiguous()):
+            raise ValueError(f"{what}: tensors must be contiguous"
+                             + (" in their last dim" if strided else ""))
         if t.requires_grad and torch.is_grad_enabled():
             raise RuntimeError(f"{what}: forward-only kernel, no backward")

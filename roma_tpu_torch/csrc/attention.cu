@@ -1,10 +1,17 @@
-// Kernel A: packed-qkv attention forward.
+// Kernel A: attention forward through strides.
 //
 // Replaces roma_tpu/ops/pallas_attention.py:_attn_packed_kernel (entry
-// fused_attention_packed). Input is the qkv Linear output (B, N, 3C) laid
-// out [q | k | v], each segment head-major (head h owns columns h*D..h*D+D);
-// output is (B, N, C) token-major, the layout the proj Linear reads. Keys at
-// index >= n_valid are masked out of the softmax.
+// fused_attention_packed) and :_attn_kernel (entry fused_attention). q, k, v
+// and the output are (B, H, N, D) views given by their batch, head and row
+// strides in elements (the last dim contiguous). The packed qkv Linear output
+// (B, N, 3C), laid out [q | k | v] with head h owning columns h*D..h*D+D of
+// each segment, is such a view (strides N*3C, D, 3C), and so is the
+// token-major (B, N, C) output the proj Linear reads (strides N*C, D, C), so
+// neither the head split nor the head merge is ever a copy; a contiguous
+// (B, H, N, D) tensor is the per-head layout. Keys at index >= n_valid are
+// masked out of the softmax. When `lse` is given, the row log-sum-exp of the
+// scaled logits goes there as float32 (B, H, N): the training backward
+// (Kernel E, attention_bwd.cu) rebuilds the probabilities from it.
 //
 // What bounds it on the H100: arithmetic. At the DINOv2 shape (N=1601,
 // D=64) one batch-head is ~0.66 GFLOP of QK^T and PV against ~0.6 MB of
@@ -30,9 +37,10 @@ constexpr size_t attn_smem_floats() {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NT) attn_packed_kernel(
-    const T* __restrict__ qkv, T* __restrict__ out, int N, int H, int n_valid,
-    float scale) {
+__global__ void __launch_bounds__(NT) attn_fwd_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ out, float* __restrict__ lse, int N, int H, int n_valid,
+    float scale, roma::Strides in, roma::Strides os) {
   constexpr int DP = D + 1;
   constexpr int CPT = D / 8;  // output columns per thread
   extern __shared__ float smem[];
@@ -41,15 +49,16 @@ __global__ void __launch_bounds__(NT) attn_packed_kernel(
   float* Vs = Ks + BK * DP;  // BK x D
   float* Ps = Vs + BK * D;   // BQ x (BK + 1)
 
-  const int C = H * D;
-  const size_t row_stride = 3 * (size_t)C;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;  // ty: 4 rows each
-  const T* base = qkv + (size_t)b * N * row_stride + h * D;
+  const size_t in_off = b * in.b + h * in.h;
+  const T* qb = q + in_off;
+  const T* kb = k + in_off;
+  const T* vb = v + in_off;
 
   for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, k = i % D, q = q0 + r;
-    Qs[r * DP + k] = q < N ? roma::to_f32(base[q * row_stride + k]) : 0.f;
+    const int r = i / D, c = i % D, row = q0 + r;
+    Qs[r * DP + c] = row < N ? roma::to_f32(qb[row * in.n + c]) : 0.f;
   }
 
   float m[4], l[4], acc[4][CPT];
@@ -64,11 +73,10 @@ __global__ void __launch_bounds__(NT) attn_packed_kernel(
   for (int k0 = 0; k0 < n_valid; k0 += BK) {
     __syncthreads();  // Q visible; the previous tile's K/V/P no longer read
     for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, k = i % D, key = k0 + r;
+      const int r = i / D, c = i % D, key = k0 + r;
       const bool ok = key < n_valid;
-      const T* src = base + key * row_stride + k;
-      Ks[r * DP + k] = ok ? roma::to_f32(src[C]) : 0.f;
-      Vs[r * D + k] = ok ? roma::to_f32(src[2 * C]) : 0.f;
+      Ks[r * DP + c] = ok ? roma::to_f32(kb[key * in.n + c]) : 0.f;
+      Vs[r * D + c] = ok ? roma::to_f32(vb[key * in.n + c]) : 0.f;
     }
     __syncthreads();
 
@@ -79,12 +87,12 @@ __global__ void __launch_bounds__(NT) attn_packed_kernel(
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int k = 0; k < D; ++k) {
+    for (int c = 0; c < D; ++c) {
       float qv[4], kv[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * DP + k];
+      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * DP + c];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) kv[j] = Ks[(j * 8 + tx) * DP + k];
+      for (int j = 0; j < 8; ++j) kv[j] = Ks[(j * 8 + tx) * DP + c];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -131,45 +139,52 @@ __global__ void __launch_bounds__(NT) attn_packed_kernel(
       for (int i = 0; i < 4; ++i) p[i] = Ps[(ty * 4 + i) * (BK + 1) + j];
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
-        const float v = Vs[j * D + c * 8 + tx];
+        const float vv = Vs[j * D + c * 8 + tx];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], v, acc[i][c]);
+        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
       }
     }
   }
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int q = q0 + ty * 4 + i;
-    if (q >= N) continue;
-    T* o = out + ((size_t)b * N + q) * C + h * D;
+    const int row = q0 + ty * 4 + i;
+    if (row >= N) continue;
+    T* o = out + b * os.b + h * os.h + row * os.n;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) o[c * 8 + tx] = roma::from_f32<T>(acc[i][c] / l[i]);
+    if (lse != nullptr && tx == 0) lse[((size_t)b * H + h) * N + row] = m[i] + logf(l[i]);
   }
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* qkv, void* out, int B, int N, int H, int n_valid,
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                   int N, int H, int n_valid, roma::Strides in, roma::Strides os,
                    cudaStream_t stream) {
   const size_t smem = attn_smem_floats<D>() * sizeof(float);
-  cudaError_t err = roma::allow_smem(attn_packed_kernel<T, D>, smem);
+  cudaError_t err = roma::allow_smem(attn_fwd_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((N + BQ - 1) / BQ, H, B);
-  attn_packed_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), N, H, n_valid,
-      1.f / sqrtf(static_cast<float>(D)));
+  attn_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), lse, N, H, n_valid, 1.f / sqrtf(static_cast<float>(D)), in, os);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int roma_attention_packed(const void* qkv, void* out, int B, int N, int H,
-                                     int D, int n_valid, int dtype, void* stream) {
+extern "C" int roma_attention_fwd(const void* q, const void* k, const void* v, void* out,
+                                  void* lse, int B, int H, int N, int D, int n_valid,
+                                  long long in_b, long long in_h, long long in_n,
+                                  long long out_b, long long out_h, long long out_n,
+                                  int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_valid < 1 || n_valid > N) return static_cast<int>(cudaErrorInvalidValue);
+  const roma::Strides in{in_b, in_h, in_n}, os{out_b, out_h, out_n};
+  float* l = static_cast<float*>(lse);
   ROMA_DISPATCH_DTYPE(dtype, {
-    if (D == 64) return static_cast<int>(launch<scalar_t, 64>(qkv, out, B, N, H, n_valid, s));
-    if (D == 128) return static_cast<int>(launch<scalar_t, 128>(qkv, out, B, N, H, n_valid, s));
+    if (D == 64) return static_cast<int>(launch<scalar_t, 64>(q, k, v, out, l, B, N, H, n_valid, in, os, s));
+    if (D == 128) return static_cast<int>(launch<scalar_t, 128>(q, k, v, out, l, B, N, H, n_valid, in, os, s));
     return static_cast<int>(cudaErrorInvalidValue);
   });
   return 0;

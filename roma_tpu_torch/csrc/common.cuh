@@ -25,6 +25,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
 
+// batch, head and row strides (in elements) of a (B, H, N, D) view whose
+// last dim is contiguous
+struct Strides {
+  long long b, h, n;
+};
+
 // opt a kernel into more than 48 KB of dynamic shared memory when needed
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

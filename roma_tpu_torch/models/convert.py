@@ -8,6 +8,10 @@ Linear (out, in); the scan-stacked ``blocks/block`` and ``hidden/block``
 leaves are unstacked along axis 0; BatchNorm ``mean``/``var`` become
 ``running_mean``/``running_var``. Every port tensor must be written exactly
 once, with the right shape, and no JAX leaf may be left over.
+
+:func:`to_port_layout` carries any tree of that shape, such as the JAX
+package's gradients, into the port's names and layouts, so the tests compare
+gradients leaf by leaf.
 """
 from __future__ import annotations
 
@@ -62,6 +66,19 @@ def _entries(tree):
                 yield key.replace("/", "."), f"{coll}/{jpath}", leaf, i, perm
 
 
+def _port_value(leaf, i, perm) -> np.ndarray:
+    val = np.asarray(leaf, np.float32)
+    val = val[i] if i is not None else val
+    return np.ascontiguousarray(val.transpose(perm) if perm is not None else val)
+
+
+def to_port_layout(tree: dict) -> dict[str, np.ndarray]:
+    """A ``{"params", "batch_stats"}``-shaped tree of arrays (either
+    collection may be absent, e.g. ``{"params": grads}``) -> {port state-dict
+    key: float32 array in the port's layout}."""
+    return {key: _port_value(leaf, i, perm) for key, _, leaf, i, perm in _entries(tree)}
+
+
 def _port_tensors(model: torch.nn.Module) -> dict[str, torch.Tensor]:
     return {k: v for k, v in model.state_dict().items() if not k.endswith("num_batches_tracked")}
 
@@ -80,11 +97,8 @@ def _apply(tree, model, write: bool):
         if tuple(sd[key].shape) != shape:
             raise ValueError(f"{key}: model {tuple(sd[key].shape)} vs JAX {jpath} -> {shape}")
         if write:
-            val = np.asarray(leaf, np.float32)
-            val = val[i] if i is not None else val
-            val = val.transpose(perm) if perm is not None else val
             with torch.no_grad():
-                sd[key].copy_(torch.from_numpy(np.ascontiguousarray(val)))
+                sd[key].copy_(torch.from_numpy(_port_value(leaf, i, perm)))
         written.add(key)
     missing = sorted(set(sd) - written)
     if missing:

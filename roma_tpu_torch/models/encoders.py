@@ -45,7 +45,13 @@ class VGG19(nn.Module):
 
 class CNNandDinov2(nn.Module):
     """VGG pyramid + frozen DINOv2 tokens under key 16 (actual stride 14);
-    DINOv2 is skipped in the upsample pass (reference encoders.py:29-68)."""
+    DINOv2 is skipped in the upsample pass (reference encoders.py:29-68).
+
+    DINOv2 is frozen as the JAX package's ``stop_gradient`` freezes it
+    (roma_tpu/models/encoders.py:102): its parameters do not require grad
+    and it runs under ``torch.no_grad``, so no graph is recorded and its
+    attention takes Kernel A's forward-only launch. The VGG BatchNorms
+    follow the module's train/eval mode."""
 
     def __init__(self, config: RoMaConfig = RoMaConfig()):
         super().__init__()
@@ -53,10 +59,11 @@ class CNNandDinov2(nn.Module):
         self.dinov2 = DinoV2(
             embed_dim=config.dino_dim, depth=config.dino_depth, num_heads=config.dino_heads,
             patch_size=config.dino_patch, gelu_tanh=config.vit_gelu_tanh,
-        )
+        ).requires_grad_(False)
 
     def forward(self, x: torch.Tensor, upsample: bool = False) -> dict[int, torch.Tensor]:
         pyramid = self.cnn(x)
         if not upsample:
-            pyramid[16] = self.dinov2(x).detach()
+            with torch.no_grad():
+                pyramid[16] = self.dinov2(x)
         return pyramid

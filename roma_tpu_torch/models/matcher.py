@@ -7,8 +7,18 @@ roma_tpu/models/matcher.py), NHWC at every public boundary.
     features), a linear head to cls_res^2 + 1 anchor logits and certainty.
   * ``ConvRefiner``: x_hat lookup (Kernel C), displacement embedding, local
     correlation (Kernel B), depthwise 5x5 blocks (Kernel D when the stack is
-    at most 32 wide, PyTorch's convs otherwise), float32 out_conv.
-  * ``Decoder``: the scale loop, 16 -> 1, or 8 -> 1 in the upsample pass.
+    at most 32 wide, PyTorch's convs otherwise), float32 out_conv. In
+    training mode the three kernels give way to their plain versions, as
+    the JAX package's ``inference=not self.train`` does: they are
+    forward-only.
+  * ``Decoder``: the scale loop, 16 -> 1, or 8 -> 1 in the upsample pass; in
+    training mode it also returns the anchor logits ``gm_cls``, their
+    certainty ``gm_certainty``, ``flow_pre_delta`` and ``delta_flow``, which
+    the losses read.
+
+Under ``torch.autocast`` the GP (kernel matrices, Cholesky, triangular
+solves) and every out_conv stay in float32, the JAX package's float32
+islands.
 
 Module names follow the released checkpoint (``decoder.gps.16``,
 ``decoder.proj.{s}.{0,1}``, ``decoder.conv_refiner.{s}.block1``,
@@ -20,6 +30,7 @@ import math
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import (
     cls_to_flow_refine,
@@ -27,8 +38,10 @@ from ..ops import (
     fused_refiner_stack,
     interpolate,
     local_correlation,
+    local_correlation_reference,
     normalized_grid,
     warp_sample,
+    warp_sample_reference,
 )
 from ..ops.refiner_stack import MAX_C
 from .blocks import nhwc, refiner_block
@@ -58,6 +71,10 @@ class GP(nn.Module):
         self.pos_conv = nn.Conv2d(2, gp_dim, 1)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        with torch.autocast(x.device.type, enabled=False):
+            return self._posterior(x, y)
+
+    def _posterior(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         b, h1, w1, c = x.shape
         _, h2, w2, _ = y.shape
         m = h2 * w2
@@ -117,12 +134,21 @@ class ConvRefiner(nn.Module):
         b, hs, ws, _ = x.shape
         s = self.spec
         dt = self.disp_emb.weight.dtype
-        x_hat = warp_sample(y, flow)
+        x_hat = warp_sample_reference(y, flow) if self.training else warp_sample(y, flow)
         disp = flow - normalized_grid(hs, ws, device=flow.device)
         emb = nhwc(self.disp_emb, (40.0 / 32.0 * scale_factor * disp).to(dt))
         parts = [x, x_hat, emb]
         if s.local_corr_radius is not None:
-            parts.append(local_correlation(x, y, s.local_corr_radius, flow).to(dt))
+            if self.training:
+                # recompute the per-tap gathers in the backward instead of
+                # saving them, as the JAX package checkpoints its chunks
+                # (local_corr.py:337-347). Only BN-free code may sit under
+                # checkpoint: the recompute would move running stats twice.
+                corr = checkpoint(local_correlation_reference, x, y, s.local_corr_radius, flow,
+                                  use_reentrant=False)
+            else:
+                corr = local_correlation(x, y, s.local_corr_radius, flow)
+            parts.append(corr.to(dt))
         d = torch.cat(parts, dim=-1)
         if not self.training and s.hidden_dim <= MAX_C:
             d = fused_refiner_stack(d, fold_refiner(self.block1, self.hidden_blocks))
@@ -130,7 +156,8 @@ class ConvRefiner(nn.Module):
             d = nhwc(self.block1, d)
             for blk in self.hidden_blocks:
                 d = nhwc(blk, d)
-        out = nhwc(self.out_conv, d.float())  # out_conv stays float32
+        with torch.autocast(d.device.type, enabled=False):  # out_conv stays float32
+            out = nhwc(self.out_conv, d.float())
         return out[..., :2], out[..., 2:]
 
 
@@ -158,7 +185,9 @@ class Decoder(nn.Module):
                 scale_factor: float = 1.0, gm_logit_bias=None):
         """``gm_logit_bias`` (B, H16, W16, cls_res^2) is the diagnostic hook of
         roma_tpu/models/matcher.py:361-366: added to the coarse anchor logits
-        before cls_to_flow_refine. Never set on the production path."""
+        before cls_to_flow_refine. Never set on the production path. Scale
+        16's flow keeps its graph, so in training the refiner's bilinear
+        fractions carry gradient back into the TransformerDecoder."""
         scales = [8, 4, 2, 1] if upsample else [16, 8, 4, 2, 1]
         sizes = {s: (f.shape[1], f.shape[2]) for s, f in f1.items()}
         h, w = sizes[1]
@@ -174,8 +203,11 @@ class Decoder(nn.Module):
 
         corresps: dict[int, dict[str, torch.Tensor]] = {}
         for ins in scales:
+            corresps[ins] = out = {}
             proj = self.proj[str(ins)]
             dt = proj[0].weight.dtype
+            # in training the projection BN moves its running stats twice a
+            # step, on f1_s and then on f2_s, as the JAX package's does
             f1_s = nhwc(proj, f1[ins].to(dt)).contiguous()
             f2_s = nhwc(proj, f2[ins].to(dt)).contiguous()
             if ins == 16 and not upsample:
@@ -184,10 +216,16 @@ class Decoder(nn.Module):
                 if gm_logit_bias is not None:
                     cls_logits = cls_logits + gm_logit_bias
                 flow = cls_to_flow_refine(cls_logits)
+                if self.training:
+                    out.update(gm_cls=cls_logits, gm_certainty=certainty)
             flow = flow.float().contiguous()
+            if self.training:
+                out["flow_pre_delta"] = flow
             delta_flow, delta_certainty = self.conv_refiner[str(ins)](
                 f1_s, f2_s, flow, scale_factor=scale_factor
             )
+            if self.training:
+                out["delta_flow"] = delta_flow
             displacement = ins * torch.stack(
                 (delta_flow[..., 0] / (self.REFINE_INIT * w),
                  delta_flow[..., 1] / (self.REFINE_INIT * h)),
@@ -195,7 +233,7 @@ class Decoder(nn.Module):
             )
             flow = flow + displacement
             certainty = certainty + delta_certainty
-            corresps[ins] = {"certainty": certainty, "flow": flow}
+            out.update(certainty=certainty, flow=flow)
             if ins != 1:
                 flow = interpolate(flow, sizes[ins // 2], mode="bilinear").detach()
                 certainty = interpolate(certainty, sizes[ins // 2], mode="bilinear").detach()
@@ -212,11 +250,18 @@ class RoMaNet(nn.Module):
         self.encoder = CNNandDinov2(config)
         self.decoder = Decoder(config)
 
-    def forward(self, im_A, im_B, upsample=False, flow=None, certainty=None,
-                scale_factor: float = 1.0, gm_logit_bias=None):
-        """Symmetric: the batch is [A->B, B->A], so flows and certainties
-        come back with batch 2B."""
+    def forward(self, im_A, im_B, symmetric: bool = False, upsample=False, flow=None,
+                certainty=None, scale_factor: float = 1.0, gm_logit_bias=None):
+        """A and B run through the encoder as one batch. ``symmetric``: the
+        decoder's batch is [A->B, B->A], so flows and certainties come back
+        with batch 2B (the matcher); otherwise A->B only (training)."""
         pyramid = self.encoder(torch.cat((im_A, im_B), dim=0), upsample=upsample)
-        f_s = {s: torch.cat(f.chunk(2)[::-1], dim=0) for s, f in pyramid.items()}
-        return self.decoder(pyramid, f_s, upsample=upsample, flow=flow, certainty=certainty,
+        halves = {s: f.chunk(2) for s, f in pyramid.items()}
+        if symmetric:
+            f_q = pyramid
+            f_s = {s: torch.cat(h[::-1], dim=0) for s, h in halves.items()}
+        else:
+            f_q = {s: h[0] for s, h in halves.items()}
+            f_s = {s: h[1] for s, h in halves.items()}
+        return self.decoder(f_q, f_s, upsample=upsample, flow=flow, certainty=certainty,
                             scale_factor=scale_factor, gm_logit_bias=gm_logit_bias)

@@ -47,7 +47,7 @@ class RegressionMatcher:
     def _match_coarse(self, im_A, im_B, out_hw, gm_logit_bias=None):
         hs, ws = im_A.shape[1:3]
         sf = math.sqrt(hs * ws / 560.0**2)
-        corresps = self.net(im_A, im_B, scale_factor=sf, gm_logit_bias=gm_logit_bias)
+        corresps = self.net(im_A, im_B, symmetric=True, scale_factor=sf, gm_logit_bias=gm_logit_bias)
         low = interpolate(corresps[16]["certainty"], out_hw, mode="bilinear")
         low = 0.5 * low * (low < 0)
         return low, corresps[1]["flow"], corresps[1]["certainty"]
@@ -55,8 +55,8 @@ class RegressionMatcher:
     def _match_upsample(self, im_A, im_B, flow, certainty):
         hs, ws = im_A.shape[1:3]
         sf = math.sqrt(hs * ws / 560.0**2)
-        corresps = self.net(im_A, im_B, upsample=True, flow=flow, certainty=certainty,
-                            scale_factor=sf)
+        corresps = self.net(im_A, im_B, symmetric=True, upsample=True, flow=flow,
+                            certainty=certainty, scale_factor=sf)
         return corresps[1]["flow"], corresps[1]["certainty"]
 
     def _assemble(self, flow, certainty, low_res_certainty):
@@ -130,12 +130,23 @@ class RegressionMatcher:
             return warp[0], certainty[0]
         return warp, certainty
 
-    def sample(self, matches, certainty, num: int = 10000, generator: torch.Generator | None = None):
-        """Balanced sparse sampling (reference matcher.py:552-573). Pass a
-        ``generator`` for draws independent of this instance's history."""
+    def sample(self, matches, certainty, num: int = 10000, key: torch.Generator | int | None = None,
+               generator: torch.Generator | None = None):
+        """Balanced sparse sampling (reference matcher.py:552-573).
+
+        ``key``, as the JAX package's ``sample(key=)`` takes it: a
+        ``torch.Generator``, or an int that seeds a fresh generator on this
+        matcher's device, for draws independent of this instance's history
+        (one per pair and repeat in a benchmark). ``generator`` is the same
+        as a Generator ``key``. Default: the instance's own generator."""
+        if key is not None and generator is not None:
+            raise ValueError("pass key or generator, not both")
+        gen = key if key is not None else generator
+        if isinstance(gen, int):
+            gen = torch.Generator(device=self.device).manual_seed(gen)
         m = torch.as_tensor(matches).reshape(-1, 4)
         c = torch.as_tensor(certainty).reshape(-1)
-        return balanced_sample(m, c, num, generator=generator if generator is not None else self.generator,
+        return balanced_sample(m, c, num, generator=gen if gen is not None else self.generator,
                                thresh=self.SAMPLE_THRESH)
 
     @staticmethod

@@ -7,6 +7,11 @@ meta device and filled in place on ``device``, so no second copy is ever
 made. ``amp=True`` runs in bfloat16 with the JAX package's float32 islands:
 the GP (kernel matrices, Cholesky, triangular solves) and every refiner's
 out_conv.
+
+``train_net`` builds the network for training
+(experiments/train_roma_outdoor.py:64-71): float32 master parameters, bf16
+compute only through ``torch.autocast`` (train/train.py). ``set_precision``
+casts the parameters themselves, which suits serving and not AdamW.
 """
 from __future__ import annotations
 
@@ -56,6 +61,13 @@ def build_net(config: RoMaConfig, device="cpu") -> RoMaNet:
     with torch.device("meta"):
         net = RoMaNet(config)
     return net.to_empty(device=device)
+
+
+def train_net(config: RoMaConfig | None = None, device="cpu", seed: int = 0) -> RoMaNet:
+    """RoMaNet in training mode on seeded random weights: float32
+    parameters, DINOv2 frozen (no grad, so no optimizer state or decay),
+    BatchNorms updating their running stats."""
+    return init_random(build_net(config or RoMaConfig(), device), seed).train()
 
 
 def roma_outdoor(

@@ -1,6 +1,13 @@
+from .attention import sdpa, sdpa_reference
 from .cls_to_flow import cls_to_flow_refine
-from .coords import normalized_grid
-from .fused_attention import attention_packed_reference, fused_attention_packed
+from .coords import batched_grid, normalized_grid
+from .fused_attention import (
+    attention_backward_reference,
+    attention_packed_reference,
+    fused_attention,
+    fused_attention_backward,
+    fused_attention_packed,
+)
 from .grid_sample import grid_sample
 from .interpolate import interpolate
 from .kde import kde
@@ -9,16 +16,21 @@ from .refiner_stack import fold_block, fold_refiner, fused_refiner_stack, refine
 from .sampling import balanced_sample, multinomial_no_replacement
 from .warp_sample import warp_sample, warp_sample_reference
 
-# the four hand-written kernels' wrappers, each with a ``launches`` count
-KERNEL_WRAPPERS = (fused_attention_packed, local_correlation, warp_sample, fused_refiner_stack)
+# the hand-written kernels' wrappers, each with a ``launches`` count
+KERNEL_WRAPPERS = (fused_attention_packed, local_correlation, warp_sample, fused_refiner_stack,
+                   fused_attention_backward, fused_attention)
 
 __all__ = [
     "KERNEL_WRAPPERS",
+    "attention_backward_reference",
     "attention_packed_reference",
     "balanced_sample",
+    "batched_grid",
     "cls_to_flow_refine",
     "fold_block",
     "fold_refiner",
+    "fused_attention",
+    "fused_attention_backward",
     "fused_attention_packed",
     "fused_refiner_stack",
     "grid_sample",
@@ -29,6 +41,8 @@ __all__ = [
     "multinomial_no_replacement",
     "normalized_grid",
     "refiner_stack_reference",
+    "sdpa",
+    "sdpa_reference",
     "warp_sample",
     "warp_sample_reference",
 ]

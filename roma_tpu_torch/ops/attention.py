@@ -1,10 +1,13 @@
-"""Scaled-dot-product attention, plain PyTorch (counterpart of
-roma_tpu/ops/attention.py:sdpa).
+"""Scaled-dot-product attention (counterpart of roma_tpu/ops/attention.py:sdpa).
 
-The einsum form of the JAX package: logits in float32, keys at index >=
-``n_valid`` masked out of the softmax, probabilities cast to the value dtype
-for the second product, float32 accumulation. It is the math that Kernel A
-(ops/fused_attention.py) is checked against.
+:func:`sdpa_reference` is the einsum form of the JAX package: logits in
+float32, keys at index >= ``n_valid`` masked out of the softmax,
+probabilities cast to the value dtype for the second product, float32
+accumulation. It is the plain version that Kernel A (ops/fused_attention.py)
+is checked against. :func:`sdpa` routes CUDA tensors with head dim 64 or 128
+to the per-head kernel entry ``fused_attention``, as the JAX package routes
+to its Pallas kernel on the TPU (roma_tpu/ops/attention.py:44-49), and every
+other input to the einsum form.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ import math
 import torch
 
 
-def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_valid: int | None = None):
+def sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_valid: int | None = None):
     """q, k, v: (B, H, N, D) -> (B, H, N, D) in q's dtype."""
     n, d = q.shape[-2:]
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(d))
@@ -21,3 +24,12 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_valid: int | None 
         logits[..., n_valid:] = float("-inf")
     probs = torch.softmax(logits, dim=-1)
     return torch.matmul(probs.to(v.dtype), v).to(q.dtype)
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_valid: int | None = None):
+    """q, k, v: (B, H, N, D) -> (B, H, N, D); differentiable on every route."""
+    if q.device.type == "cuda" and q.shape[-1] in (64, 128):
+        from .fused_attention import fused_attention
+
+        return fused_attention(q, k, v, n_valid)
+    return sdpa_reference(q, k, v, n_valid)

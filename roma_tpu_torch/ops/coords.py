@@ -22,7 +22,10 @@ def _grid_np(h: int, w: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=64)
 def _grid_on(h: int, w: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_grid_np(h, w)).to(device)
+    # a normal tensor even when first asked for under inference_mode, so a
+    # later training step can save it for backward
+    with torch.inference_mode(False):
+        return torch.from_numpy(_grid_np(h, w)).to(device)
 
 
 def normalized_grid(h: int, w: int, device=None) -> torch.Tensor:
@@ -31,3 +34,9 @@ def normalized_grid(h: int, w: int, device=None) -> torch.Tensor:
     (a pageable copy would stall the host until the card catches up); the
     tensor is shared, so callers must not write to it."""
     return _grid_on(h, w, torch.device(device if device is not None else "cpu"))
+
+
+def batched_grid(b: int, h: int, w: int, device=None) -> torch.Tensor:
+    """(b, h, w, 2) broadcast view of :func:`normalized_grid` (the JAX
+    package's ``batched_grid``, reference ``get_grid``)."""
+    return normalized_grid(h, w, device).expand(b, h, w, 2)

@@ -32,6 +32,13 @@ def _resize_matrix(n_in: int, n_out: int, mode: str, scale: float | None) -> np.
     (out/in) replaces the size-derived scale, as torch's ``scale_factor``
     code path does."""
     o = np.arange(n_out, dtype=np.float64)
+    w = np.zeros((n_out, n_in), np.float64)
+    if mode in ("nearest", "nearest-exact"):
+        # torch's legacy 'nearest' takes floor(o * in/out), 'nearest-exact'
+        # the pixel center's floor((o + 0.5) * in/out)
+        src = (o + (0.5 if mode == "nearest-exact" else 0.0)) * n_in / n_out
+        w[np.arange(n_out), np.floor(src).astype(np.int64).clip(0, n_in - 1)] = 1.0
+        return w.astype(np.float32)
     src = (o + 0.5) * ((1.0 / scale) if scale is not None else n_in / n_out) - 0.5
     x0 = np.floor(src)
     f = src - x0
@@ -41,7 +48,6 @@ def _resize_matrix(n_in: int, n_out: int, mode: str, scale: float | None) -> np.
         taps = [(x0 - 1 + k, _cubic(f - (k - 1))) for k in range(4)]
     else:
         raise ValueError(f"unsupported resize mode: {mode}")
-    w = np.zeros((n_out, n_in), np.float64)
     for idx, wgt in taps:  # border replicate at the edges
         np.add.at(w, (np.arange(n_out), idx.astype(np.int64).clip(0, n_in - 1)), wgt)
     return w.astype(np.float32)
@@ -50,8 +56,10 @@ def _resize_matrix(n_in: int, n_out: int, mode: str, scale: float | None) -> np.
 @functools.lru_cache(maxsize=256)
 def _resize_matrix_on(n_in, n_out, mode, scale, device) -> torch.Tensor:
     """The matrix, kept on ``device`` so a call makes no host-to-device copy
-    (shared: read-only)."""
-    return torch.from_numpy(_resize_matrix(n_in, n_out, mode, scale)).to(device)
+    (shared: read-only; a normal tensor even when made under inference_mode,
+    so training can save it for backward)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_resize_matrix(n_in, n_out, mode, scale)).to(device)
 
 
 def interpolate(
@@ -60,8 +68,8 @@ def interpolate(
     mode: str = "bilinear",
     scale_factor: tuple[float, float] | None = None,
 ) -> torch.Tensor:
-    """Resize NHWC ``x`` (B, H, W, C) to ``size`` (bilinear or bicubic,
-    align_corners=False);
+    """Resize NHWC ``x`` (B, H, W, C) to ``size`` (bilinear, bicubic,
+    nearest or nearest-exact, align_corners=False);
     ``scale_factor`` takes torch's scale_factor path (DINOv2's pos-embed
     resize relies on it). Computed in float32, returned in x's dtype."""
     h, w = x.shape[1:3]

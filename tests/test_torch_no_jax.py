@@ -1,5 +1,6 @@
-"""The port stands alone: it imports no JAX, Flax or roma_tpu, and on CPU
-tensors every kernel wrapper runs its plain version without launching."""
+"""The port stands alone: it imports no JAX, Flax, Optax, Orbax or roma_tpu
+(the training package included), and on CPU tensors every kernel wrapper
+runs its plain version without launching."""
 import ast
 import subprocess
 import sys
@@ -11,19 +12,23 @@ import torch
 import roma_tpu_torch
 from roma_tpu_torch.ops import (
     KERNEL_WRAPPERS,
+    attention_backward_reference,
     attention_packed_reference,
     fold_block,
+    fused_attention,
+    fused_attention_backward,
     fused_attention_packed,
     fused_refiner_stack,
     local_correlation,
     local_correlation_reference,
     refiner_stack_reference,
+    sdpa_reference,
     warp_sample,
     warp_sample_reference,
 )
 
 PKG = Path(roma_tpu_torch.__file__).parent
-BANNED = ("jax", "jaxlib", "flax", "roma_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "roma_tpu")
 
 
 def test_imports_and_matches_with_jax_blocked():
@@ -32,12 +37,14 @@ def test_imports_and_matches_with_jax_blocked():
         f"for m in {BANNED!r}: sys.modules[m] = None\n"
         "import numpy as np\n"
         "from roma_tpu_torch import roma_outdoor, RoMaConfig\n"
+        "import roma_tpu_torch.train\n"
         "m = roma_outdoor(amp=False, coarse_res=56, upsample_res=64, config=RoMaConfig.tiny())\n"
         "rs = np.random.RandomState(0)\n"
         "w, c = m.match(rs.randn(56, 56, 3).astype('float32'), rs.randn(56, 56, 3).astype('float32'))\n"
         "assert tuple(w.shape) == (64, 128, 4) and tuple(c.shape) == (64, 128)\n"
         "loaded = [k for k, v in sys.modules.items() if v is not None]\n"
-        "assert not any(k == b or k.startswith(b + '.') for k in loaded for b in ('roma_tpu', 'flax'))\n"
+        "assert not any(k == b or k.startswith(b + '.') for k in loaded\n"
+        "               for b in ('roma_tpu', 'flax', 'optax', 'orbax'))\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -73,4 +80,10 @@ def test_cpu_tensors_take_the_plain_versions():
     blocks = [fold_block(t(c, 1, 5, 5), t(c), t(c), t(c), t(c), t(c).abs() + 0.5, t(c, c, 1, 1), t(c))]
     x = t(2, 9, 11, c)
     assert torch.equal(fused_refiner_stack(x, blocks), refiner_stack_reference(x, blocks))
-    assert [f.launches for f in KERNEL_WRAPPERS] == counts == [0, 0, 0, 0]
+    q, k, v, g = (t(2, 3, 70, 64) for _ in range(4))
+    assert torch.equal(fused_attention(q, k, v, 60), sdpa_reference(q, k, v, 60))
+    grads = [torch.empty_like(q) for _ in range(3)]
+    got = fused_attention_backward(q, k, v, None, None, g, *grads, n_valid=60)
+    for a, b in zip(got, attention_backward_reference(q, k, v, g, 60)):
+        assert torch.equal(a, b)
+    assert [f.launches for f in KERNEL_WRAPPERS] == counts == [0] * 6

@@ -47,7 +47,7 @@ def _coarse(nets, gm_logit_bias=None, seeds=(1, 2)):
         gm_logit_bias=None if gm_logit_bias is None else jnp.asarray(gm_logit_bias),
     )
     with torch.no_grad():
-        tc = net(torch.from_numpy(a), torch.from_numpy(b), scale_factor=0.1,
+        tc = net(torch.from_numpy(a), torch.from_numpy(b), symmetric=True, scale_factor=0.1,
                  gm_logit_bias=None if gm_logit_bias is None else torch.from_numpy(gm_logit_bias))
     _compare(jc, tc, (16, 8, 4, 2, 1))
 
@@ -77,7 +77,7 @@ def test_upsample_pass_matches_jax(nets):
         flow=jnp.asarray(flow), certainty=jnp.asarray(cert), scale_factor=sf,
     )
     with torch.no_grad():
-        tc = net(torch.from_numpy(a), torch.from_numpy(b), upsample=True,
+        tc = net(torch.from_numpy(a), torch.from_numpy(b), symmetric=True, upsample=True,
                  flow=torch.from_numpy(flow), certainty=torch.from_numpy(cert), scale_factor=sf)
     assert 16 not in tc
     _compare(jc, tc, (8, 4, 2, 1))
