@@ -22,9 +22,20 @@
    frozen backbone, the updates and the kernel launches.
 7. Runs the per-head attention op (ops.sdpa) forward and backward as a
    caller does, at the DINOv2 shape.
-8. Prints one JSON line of per-kernel results (each kernel's launches are
-   counted over the phase of 4, 6 or 7 that runs it), the card's name and
-   power limit, and as the last line {"ok": true, "device": {...}}.
+8. Right after 2, checks the windowed samplers and the packed refiner
+   stack at their design shapes (B = 2, bf16 and f32): Kernel F (compact_miss) exactly
+   against its plain version; Kernel G's two entries against their plain
+   tile computation, and windowed_warp / windowed_grid_sample as a whole
+   against warp_sample_reference, asserting which branch each case took;
+   Kernel H against refiner_stack_reference and Kernel D. After 7, drives
+   those entries once as a caller does and counts F, G and H's launches.
+9. Prints one JSON line of per-kernel results (each kernel's launches are
+   counted over the phase of 4, 6, 7 or 8 that runs it; its bound_ms is the
+   least time the card could take for the same work, from the bytes each
+   input and output moves once and the operations over the peaks below;
+   library_ms is one PyTorch call that computes the same function, where
+   there is one), the card's name and power limit, and as the last line
+   {"ok": true, "device": {...}}.
 
 Any failure exits non-zero before the last line is printed. Without a CUDA
 device it exits non-zero at once.
@@ -38,6 +49,8 @@ import os
 import subprocess
 import sys
 import time
+from dataclasses import dataclass
+from typing import Callable
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -66,6 +79,10 @@ KERNEL_INFO = {
     "fused_refiner_stack": ("roma_tpu_torch/csrc/refiner_stack.cu", "roma_tpu/ops/pallas_refiner.py:111"),
     "fused_attention_backward": ("roma_tpu_torch/csrc/attention_bwd.cu", "roma_tpu/ops/pallas_attention.py:79"),
     "fused_attention": ("roma_tpu_torch/csrc/attention.cu", "roma_tpu/ops/pallas_attention.py:54"),
+    "compact_miss": ("roma_tpu_torch/csrc/compact_miss.cu", "roma_tpu/ops/window_util.py:26"),
+    "warp_tiles": ("roma_tpu_torch/csrc/window_warp.cu", "roma_tpu/ops/tile_window.py:123"),
+    "warp_tiles_v1": ("roma_tpu_torch/csrc/window_warp.cu", "graveyard/window_warp_v1.py:86"),
+    "fused_refiner_stack_packed": ("roma_tpu_torch/csrc/refiner_chain.cu", "roma_tpu/ops/pallas_refiner.py:279"),
 }
 # the kernels each driven phase must launch; the training step must launch
 # none of the forward-only ones
@@ -73,6 +90,38 @@ MATCH_KERNELS = ("fused_attention_packed", "local_correlation", "warp_sample", "
 TRAIN_KERNELS = ("fused_attention_packed", "fused_attention_backward")
 FORWARD_ONLY = ("local_correlation", "warp_sample", "fused_refiner_stack")
 SDPA_KERNELS = ("fused_attention", "fused_attention_backward")
+WINDOW_KERNELS = ("compact_miss", "warp_tiles", "warp_tiles_v1", "fused_refiner_stack_packed")
+
+# the least time of a kernel's work: the larger of its bytes (each input read
+# once, each output written once) over the memory rate and its operations
+# over the peak for their type (H100 SXM data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_BF16_TENSOR = 989e12  # bf16 x bf16 products: attention, B's dot products in bf16
+PEAK_F32 = 67e12  # CUDA cores: the rest (D and H's pointwise is f32 x f32, as on the TPU; F's int ops)
+
+
+@dataclass
+class Case:
+    """One kernel shape: the kernel and plain calls, the rows to compare,
+    the work it must do (``ops`` at ``peak``, ``f32_ops`` on the CUDA cores
+    beside them), and one PyTorch call computing the same function."""
+    name: str
+    label: str
+    kern: Callable
+    plain: Callable
+    rows: int | None = None
+    bytes: float = 0.0
+    ops: float = 0.0
+    peak: float = PEAK_F32
+    f32_ops: float = 0.0
+    library: Callable | None = None
+
+    def ops_ms(self) -> float:
+        """The least time of the operations: tensor cores and CUDA cores run
+        side by side, so the larger of their two times; one pipe, the sum."""
+        if self.peak == PEAK_F32:
+            return 1e3 * (self.ops + self.f32_ops) / PEAK_F32
+        return 1e3 * max(self.ops / self.peak, self.f32_ops / PEAK_F32)
 
 
 def smi_line() -> str:
@@ -100,8 +149,9 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return times[len(times) // 2]
 
 
-def smooth_flow(gen, b, h, w, off_band=True):
-    """Identity warp + smooth noise, with a band of rows pushed off-image."""
+def smooth_flow(gen, b, h, w, off_band=True, scale=0.1):
+    """Identity warp + smooth noise of amplitude ``scale``, with a band of
+    rows pushed off-image."""
     import torch
     import torch.nn.functional as F
 
@@ -110,20 +160,62 @@ def smooth_flow(gen, b, h, w, off_band=True):
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     noise = torch.randn(b, 2, max(h // 8, 2), max(w // 8, 2), generator=gen, device="cuda")
     noise = F.interpolate(noise, size=(h, w), mode="bilinear").permute(0, 2, 3, 1)
-    f = torch.stack((gx, gy), -1)[None] + 0.1 * noise
+    f = torch.stack((gx, gy), -1)[None] + scale * noise
     if off_band:
         f[:, : h // 10, :, 1] -= 2.5
     return f.contiguous()
 
 
+def sdpa_library(q, k, v, n_valid):
+    """F.scaled_dot_product_attention on (B, H, N, D) views, keys at or past
+    n_valid masked out by a boolean key mask."""
+    import torch
+    import torch.nn.functional as F
+
+    mask = None if n_valid is None else (torch.arange(q.shape[2], device=q.device) < n_valid).view(1, 1, 1, -1)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def grid_sample_library(x, flow):
+    """F.grid_sample on the NCHW copy of x (made here, outside any timed
+    window) with the flow in x's dtype, as the call requires."""
+    import torch.nn.functional as F
+
+    xn, g = x.permute(0, 3, 1, 2).contiguous(), flow.to(x.dtype)
+    return lambda: F.grid_sample(xn, g, mode="bilinear", padding_mode="zeros", align_corners=False)
+
+
+def refiner_blocks(gen, c=24, n=9):
+    """n folded refiner blocks of width c (Kernels D and H)."""
+    import torch
+
+    from roma_tpu_torch import ops
+
+    f = lambda *s, scale=1.0, shift=0.0: shift + scale * torch.randn(*s, generator=gen, device="cuda")
+    return [ops.fold_block(f(c, 1, 5, 5, scale=0.2), f(c, scale=0.1), f(c, scale=0.1, shift=1.0),
+                           f(c, scale=0.1), f(c, scale=0.05), f(c, scale=0.2, shift=1.0).abs(),
+                           f(c, c, 1, 1, scale=1.5 / c**0.5), f(c, scale=0.1)) for _ in range(n)]
+
+
+def refiner_cost(x, blocks):
+    """(bytes, ops) of a folded stack: x in, out, the weights; per pixel and
+    block a KxK depthwise and a CxC pointwise product, 2 ops per FMA."""
+    b, h, w, c = x.shape
+    k = blocks[0]["dw"].shape[0]
+    per_block = k * k * c + c * c + 2 * c
+    return (2 * x.numel() * x.element_size() + 4 * per_block * len(blocks),
+            2 * len(blocks) * b * h * w * (k * k * c + c * c))
+
+
 def kernel_cases(gen, dt):
-    """(kernel name, label, kernel call, plain call, rows to compare) per
-    main-path shape, inputs of dtype ``dt`` made on the card from ``gen``."""
+    """The Cases of Kernels A-D at the main path's shapes, inputs of dtype
+    ``dt`` made on the card from ``gen``."""
     import torch
 
     from roma_tpu_torch import ops
 
     rn = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dt)
+    es = torch.finfo(dt).bits // 8
     out = []
     # Kernel A: DINOv2 (16 x 64) and TransformerDecoder (8 x 128) at 560^2,
     # plus the n_valid key mask on a padded sequence
@@ -132,21 +224,28 @@ def kernel_cases(gen, dt):
                                 ("dinov2 N1664 n_valid 1601", 1664, 16, 1601)):
         qkv = 0.5 * rn(2, n, 3 * 1024)
         qkv[:, nv or n:] *= 5.0
-        out.append(("fused_attention_packed", label,
-                    lambda q=qkv, h=heads, v=nv: ops.fused_attention_packed(q, h, v),
-                    lambda q=qkv, h=heads, v=nv: ops.attention_packed_reference(q, h, v),
-                    nv or n))
-    # Kernel B: every local-correlation scale of both passes, B = 2
+        q, k, v = qkv.view(2, n, 3, heads, 1024 // heads).permute(2, 0, 3, 1, 4)
+        out.append(Case("fused_attention_packed", label,
+                        lambda q=qkv, h=heads, v=nv: ops.fused_attention_packed(q, h, v),
+                        lambda q=qkv, h=heads, v=nv: ops.attention_packed_reference(q, h, v),
+                        rows=nv or n, bytes=2 * n * 4 * 1024 * es, ops=4 * 2 * n * (nv or n) * 1024,
+                        peak=PEAK_BF16_TENSOR, library=sdpa_library(q, k, v, nv)))
+    # Kernel B: every local-correlation scale of both passes, B = 2; its dot
+    # products take f1's dtype (the TPU kernel's MXU operands), the bilinear
+    # fold of the (2r + 2)^2 integer taps is f32
     for label, hw, c, r in (("coarse s16 40^2 C512 r7", 40, 512, 7),
                             ("coarse s8 70^2 C512 r3", 70, 512, 3),
                             ("coarse s4 140^2 C256 r2", 140, 256, 2),
                             ("upsample s8 108^2 C512 r3", 108, 512, 3),
                             ("upsample s4 216^2 C256 r2", 216, 256, 2)):
         f0, f1, w = rn(2, hw, hw, c), rn(2, hw, hw, c), smooth_flow(gen, 2, hw, hw)
-        out.append(("local_correlation", label,
-                    lambda a=f0, b=f1, r=r, w=w: ops.local_correlation(a, b, r, w),
-                    lambda a=f0, b=f1, r=r, w=w: ops.local_correlation_reference(a, b, r, w),
-                    None))
+        npx = 2 * hw * hw
+        out.append(Case("local_correlation", label,
+                        lambda a=f0, b=f1, r=r, w=w: ops.local_correlation(a, b, r, w),
+                        lambda a=f0, b=f1, r=r, w=w: ops.local_correlation_reference(a, b, r, w),
+                        bytes=npx * (2 * c * es + 8 + (2 * r + 1) ** 2 * es),
+                        ops=npx * 2 * c * (2 * r + 2) ** 2, f32_ops=npx * 8 * (2 * r + 1) ** 2,
+                        peak=PEAK_BF16_TENSOR if dt == torch.bfloat16 else PEAK_F32))
     # Kernel C: the x_hat lookup at every scale of both passes, B = 2
     for label, hw, c in (("coarse s16 40^2 C512", 40, 512), ("coarse s8 70^2 C512", 70, 512),
                          ("coarse s4 140^2 C256", 140, 256), ("coarse s2 280^2 C64", 280, 64),
@@ -154,20 +253,19 @@ def kernel_cases(gen, dt):
                          ("upsample s4 216^2 C256", 216, 256), ("upsample s2 432^2 C64", 432, 64),
                          ("upsample s1 864^2 C9", 864, 9)):
         y, w = rn(2, hw, hw, c), smooth_flow(gen, 2, hw, hw)
-        out.append(("warp_sample", label,
-                    lambda y=y, w=w: ops.warp_sample(y, w),
-                    lambda y=y, w=w: ops.warp_sample_reference(y, w), None))
+        npx = 2 * hw * hw
+        out.append(Case("warp_sample", label,
+                        lambda y=y, w=w: ops.warp_sample(y, w),
+                        lambda y=y, w=w: ops.warp_sample_reference(y, w),
+                        bytes=npx * (2 * c * es + 8), ops=8 * npx * c, library=grid_sample_library(y, w)))
     # Kernel D: the scale-1 refiner stack, 9 folded blocks of C = 24
-    c = 24
-    f = lambda *s, scale=1.0, shift=0.0: shift + scale * torch.randn(*s, generator=gen, device="cuda")
-    blocks = [ops.fold_block(f(c, 1, 5, 5, scale=0.2), f(c, scale=0.1), f(c, scale=0.1, shift=1.0),
-                             f(c, scale=0.1), f(c, scale=0.05), f(c, scale=0.2, shift=1.0).abs(),
-                             f(c, c, 1, 1, scale=1.5 / c**0.5), f(c, scale=0.1)) for _ in range(9)]
+    blocks = refiner_blocks(gen)
     for label, hw in (("coarse s1 560^2 C24 x9", 560), ("upsample s1 864^2 C24 x9", 864)):
-        x = rn(2, hw, hw, c)
-        out.append(("fused_refiner_stack", label,
-                    lambda x=x: ops.fused_refiner_stack(x, blocks),
-                    lambda x=x: ops.refiner_stack_reference(x, blocks), None))
+        x = rn(2, hw, hw, 24)
+        nbytes, nops = refiner_cost(x, blocks)
+        out.append(Case("fused_refiner_stack", label,
+                        lambda x=x: ops.fused_refiner_stack(x, blocks),
+                        lambda x=x: ops.refiner_stack_reference(x, blocks), bytes=nbytes, ops=nops))
     return out
 
 
@@ -188,13 +286,25 @@ def check_output(name, label, dt, k, p, what: str = "") -> float:
     return err
 
 
-def record(r, err, kern, plain, label):
-    """Add a bf16 case's CUDA-event medians and error to a kernel's row."""
-    ms, pms = cuda_ms(kern), cuda_ms(plain)
+def record(r, err, case: Case, dtype: str = "bf16"):
+    """Add a case's CUDA-event medians (kernel, plain version, library call),
+    its bound and its error to a kernel's row; the timed cases are the bf16
+    ones (Kernel F's: bool flags in, int32 slots out)."""
+    ms, pms = cuda_ms(case.kern), cuda_ms(case.plain)
+    lms = cuda_ms(case.library) if case.library else None
+    bytes_ms, ops_ms = 1e3 * case.bytes / HBM_BYTES_PER_S, case.ops_ms()
     r["ms"] += ms
     r["plain_ms"] += pms
+    r["bound_ms"] += max(bytes_ms, ops_ms)
+    r["_bytes_ms"] += bytes_ms
+    r["_ops_ms"] += ops_ms
+    if lms is not None:
+        r["library_ms"] = (r["library_ms"] or 0.0) + lms
     r["max_abs_err"] = max(r["max_abs_err"], err)
-    print(f"{r['name']:24s} {label:30s} bf16     kernel {ms:.4f} ms  plain {pms:.4f} ms", flush=True)
+    lib = f"  library {lms:.4f} ms" if lms is not None else ""
+    print(f"{r['name']:26s} {case.label:30s} {dtype:8s} kernel {ms:.4f} ms  plain {pms:.4f} ms{lib}  "
+          f"bound {max(bytes_ms, ops_ms):.4f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'})",
+          flush=True)
 
 
 def check_kernels(results):
@@ -202,10 +312,11 @@ def check_kernels(results):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dt in (torch.float32, torch.bfloat16):
-        for name, label, kern, plain, rows in kernel_cases(gen, dt):
-            err = check_output(name, label, dt, kern()[:, :rows], plain()[:, :rows])
+        for case in kernel_cases(gen, dt):
+            rows = case.rows
+            err = check_output(case.name, case.label, dt, case.kern()[:, :rows], case.plain()[:, :rows])
             if dt == torch.bfloat16:
-                record(results[name], err, kern, plain, label)
+                record(results[case.name], err, case)
 
 
 # the attention shapes of the training step and the match: the decoder's,
@@ -227,6 +338,7 @@ def check_attention_kernels(results):
     gen = torch.Generator(device="cuda").manual_seed(1)
     for dt in (torch.float32, torch.bfloat16):
         rn = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dt)
+        es = torch.finfo(dt).bits // 8
         for label, b, n, h, d, nv in ATTN_SHAPES:
             c = h * d
             qkv = 0.5 * rn(b, n, 3 * c)
@@ -245,7 +357,17 @@ def check_attention_kernels(results):
                     for gname, got, ref in zip(("dq", "dk", "dv"), grads, refs)]
             del refs
             if dt == torch.bfloat16:
-                record(results["fused_attention_backward"], max(errs), kern, plain, label)
+                # the library's backward on contiguous leaves; its forward runs
+                # once here, outside the timed window
+                leaves = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
+                lout = sdpa_library(*leaves, nv)()
+                dh = _heads(dout, h).contiguous()
+                record(results["fused_attention_backward"], max(errs),
+                       Case("fused_attention_backward", label, kern, plain,
+                            bytes=8 * b * n * c * es + 4 * b * h * n, ops=10 * b * n * (nv or n) * c,
+                            peak=PEAK_BF16_TENSOR,
+                            library=lambda: torch.autograd.grad(lout, leaves, dh, retain_graph=True)))
+                del leaves, lout, dh
 
             qh, kh, vh = (0.5 * rn(b, h, n, d) for _ in range(3))
             for t in (qh, kh, vh):
@@ -255,7 +377,10 @@ def check_attention_kernels(results):
             rows = nv or n
             err = check_output("fused_attention", label, dt, kern()[:, :, :rows], plain()[:, :, :rows])
             if dt == torch.bfloat16:
-                record(results["fused_attention"], err, kern, plain, label)
+                record(results["fused_attention"], err,
+                       Case("fused_attention", label, kern, plain, bytes=4 * b * n * c * es,
+                            ops=4 * b * n * (nv or n) * c, peak=PEAK_BF16_TENSOR,
+                            library=sdpa_library(qh, kh, vh, nv)))
             del qkv, out, lse, dout, dqkv
             torch.cuda.empty_cache()
 
@@ -541,6 +666,177 @@ def run_sdpa_path(results):
     results["fused_attention"]["launches"] = counts["fused_attention"]
 
 
+def speckled_flow(gen, b, h, w, frac=0.02):
+    """smooth_flow at a fifth of its noise, with a fraction ``frac`` of the
+    queries thrown by a unit normal: the speckle outliers the v2 sampler's
+    fixups exist for. At smooth_flow's own amplitude (0.1, ~43 px at 864)
+    a 16x16 tile's targets spread past its 64-row window and most tiles
+    overflow; here only the row of tiles on the off-image band's edge does,
+    and those are recomputed exactly."""
+    import torch
+
+    f = smooth_flow(gen, b, h, w, scale=0.02)
+    sp = torch.rand(b, h, w, 1, generator=gen, device="cuda") < frac
+    return (f + sp * torch.randn(b, h, w, 2, generator=gen, device="cuda")).contiguous()
+
+
+def gentle_flow(gen, b, h, w):
+    """The identity plus 0.02x smooth_flow's noise, no off-image band, and
+    0.5% speckle off the last query row and column: ~20 misses in a 64x64
+    v1 tile, so the fixups run and every tile stays within its 64 slots
+    (v1 has no tile recompute). A partial tile repeats its last row and
+    column (edge padding), which would copy a speckle there 33 times."""
+    import torch
+
+    f = smooth_flow(gen, b, h, w, off_band=False, scale=0.002)
+    sp = torch.rand(b, h, w, 1, generator=gen, device="cuda") < 0.005
+    sp[:, -1] = False
+    sp[:, :, -1] = False
+    return (f + sp * torch.randn(b, h, w, 2, generator=gen, device="cuda")).contiguous()
+
+
+def tile_cost(args):
+    """(bytes, ops) of one Kernel G call: the image, the tile fields and
+    fixups in, the tiles out; ~8 ops per in-window element, 1 per fixup."""
+    x, yl, xl, fy, fx, oy, ox, fpos, fval, wh, ww, _ = args
+    ins = (x, yl, xl, fy, fx, oy, ox, fpos, fval)
+    nbytes = sum(t.numel() * t.element_size() for t in ins) + yl.numel() * x.shape[-1] * x.element_size()
+    n_ok = int(((yl >= 0) & (yl <= wh - 2) & (xl >= 0) & (xl <= ww - 2)).sum())
+    return nbytes, x.shape[-1] * (8 * n_ok + int((fpos < yl.shape[1]).sum()))
+
+
+def check_window_kernels(results):
+    """Kernels F, G and H against their plain versions at the JAX design
+    shapes (B = 2), and windowed_warp / windowed_grid_sample as a whole
+    against warp_sample_reference, each case's branch asserted."""
+    import torch
+
+    from roma_tpu_torch import ops
+    from roma_tpu_torch.graveyard import window_warp_v1 as v1
+    from roma_tpu_torch.ops import tile_window as tw
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    # Kernel F: the v2 sampler's tiles at 864^2 and the v1 sampler's
+    for label, bnt, t, kf in (("v2 864^2 5832 x T256 kf32", 5832, 256, 32),
+                              ("v1 864^2 392 x T4096 kf64", 392, 4096, 64)):
+        for density in (0.005, 0.05, 0.5):
+            miss = torch.rand(bnt, 1, t, generator=gen, device="cuda") < density
+            case = Case("compact_miss", f"{label} {density:g}", lambda m=miss, t=t, k=kf: ops.compact_miss(m, t, k),
+                        lambda m=miss, t=t, k=kf: ops.compact_miss_reference(m, t, k),
+                        bytes=bnt * t + 4 * bnt * kf, ops=bnt * t)
+            got, ref = case.kern(), case.plain()
+            torch.cuda.synchronize()
+            require(torch.equal(got, ref), f"compact_miss {case.label}: kernel disagrees with its plain version")
+            print(f"{'compact_miss':26s} {case.label:30s} int32    exact, {int((ref < t).sum())} slots filled",
+                  flush=True)
+            record(results["compact_miss"], 0.0, case, "bool")
+
+    def whole(name, label, dt, fn, x, flow, branches, took):
+        """The whole function against warp_sample_reference, and its branch."""
+        before = dict(branches)
+        got = fn(x, flow)
+        check_output(name, label, dt, got, ops.warp_sample_reference(x, flow), "whole function ")
+        moved = {k: v - before[k] for k, v in branches.items() if v != before[k]}
+        require(set(moved) == took, f"{name} {label}: branches {moved}, expected {took}")
+        return got
+
+    spec, spec1 = tw.WarpSpec(), v1.WindowSpec()
+    for dt in (torch.float32, torch.bfloat16):
+        rn = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dt)
+        # Kernel G, v2 entry: the scale-1 x_hat (C = 9) at both passes' sizes
+        for hw in (560, 864):
+            label = f"v2 {hw}^2 C9 speckle 2%"
+            x, flow = rn(2, hw, hw, 9), speckled_flow(gen, 2, hw, hw)
+            plan = tw._plan(flow, hw, hw, spec)
+            args = tw._tile_args(x, plan, spec)
+            nbytes, nops = tile_cost(args)
+            case = Case("warp_tiles", label, lambda a=args: ops.warp_tiles(*a),
+                        lambda a=args: ops.warp_tiles_reference(*a), bytes=nbytes, ops=nops,
+                        library=grid_sample_library(x, flow))
+            err = check_output("warp_tiles", label, dt, case.kern(), case.plain())
+            counts = plan["counts"].reshape(-1)
+            print(f"{'':26s} {label:30s} tiles {counts.numel()}, needs-fix per tile max {int(counts.max())}, "
+                  f"over budget {int((counts > spec.kf).sum())}", flush=True)
+            took = {"tile_recompute"} if bool((counts > spec.kf).any()) else set()
+            whole("windowed_warp", label, dt, ops.windowed_warp, x, flow, ops.windowed_warp.branches, took)
+            if dt == torch.bfloat16:
+                record(results["warp_tiles"], err, case)
+        # the wild flow: more over-budget tiles than the recompute takes
+        x, flow = rn(2, 864, 864, 9), 2.5 * torch.randn(2, 864, 864, 2, generator=gen, device="cuda")
+        counts = tw._plan(flow, 864, 864, spec)["counts"]
+        print(f"{'':26s} {'v2 864^2 C9 wild 2.5 randn':30s} over budget {int((counts > spec.kf).sum())} "
+              f"of {counts.numel()} tiles", flush=True)
+        got = whole("windowed_warp", "v2 864^2 C9 wild", dt, ops.windowed_warp, x, flow,
+                    ops.windowed_warp.branches, {"exact"})
+        require(torch.equal(got, ops.warp_sample_reference(x, flow)), "wild case: exact branch not exact")
+        # Kernel G, v1 entry: 64x64 tiles at 864^2, a flow no tile overflows on
+        label = "v1 864^2 C9 gentle"
+        x, flow = rn(2, 864, 864, 9), gentle_flow(gen, 2, 864, 864)
+        plan = v1._plan(flow, 864, 864, spec1)
+        args = v1._tile_args(x, plan, spec1)
+        nbytes, nops = tile_cost(args)
+        case = Case("warp_tiles_v1", label, lambda a=args: ops.warp_tiles_v1(*a),
+                    lambda a=args: ops.warp_tiles_reference(*a), bytes=nbytes, ops=nops,
+                    library=grid_sample_library(x, flow))
+        err = check_output("warp_tiles_v1", label, dt, case.kern(), case.plain())
+        most = int(plan["miss"].sum(-1).max())
+        print(f"{'':26s} {label:30s} tiles {plan['miss'].shape[0] * plan['nt']}, misses per tile max "
+              f"{most} (kf {spec1.kf})", flush=True)
+        require(most > 0, f"windowed_grid_sample {label}: no miss, the fixups were not exercised")
+        whole("windowed_grid_sample", label, dt, v1.windowed_grid_sample, x, flow,
+              v1.windowed_grid_sample.branches, set())
+        if dt == torch.bfloat16:
+            record(results["warp_tiles_v1"], err, case)
+
+    # Kernel H: the scale-1 refiner stack, 9 folded blocks of C = 24
+    blocks = refiner_blocks(gen)
+    for dt in (torch.float32, torch.bfloat16):
+        for hw in (560, 864):
+            label = f"s1 {hw}^2 C24 x9"
+            x = torch.randn(2, hw, hw, 24, generator=gen, device="cuda").to(dt)
+            nbytes, nops = refiner_cost(x, blocks)
+            case = Case("fused_refiner_stack_packed", label, lambda x=x: ops.fused_refiner_stack_packed(x, blocks),
+                        lambda x=x: ops.refiner_stack_reference(x, blocks), bytes=nbytes, ops=nops)
+            got = case.kern()
+            err = check_output(case.name, label, dt, got, case.plain())
+            check_output(case.name, label, dt, got, ops.fused_refiner_stack(x, blocks), "vs Kernel D ")
+            if dt == torch.bfloat16:
+                record(results[case.name], err, case)
+                print(f"{'':26s} {label:30s} bf16     Kernel H {cuda_ms(case.kern):.4f} ms  Kernel D "
+                      f"{cuda_ms(lambda x=x: ops.fused_refiner_stack(x, blocks)):.4f} ms", flush=True)
+        torch.cuda.empty_cache()
+
+
+def run_window_path(results):
+    """The windowed samplers and the packed stack as a caller uses them, in
+    bf16: windowed_warp at 560^2 and 864^2 (and a wild flow),
+    windowed_grid_sample at 864^2, fused_refiner_stack_packed at 560^2 and
+    864^2. Counts F, G and H's launches over this run."""
+    import torch
+
+    from roma_tpu_torch import ops
+    from roma_tpu_torch.graveyard.window_warp_v1 import windowed_grid_sample
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
+    wild = 2.5 * torch.randn(2, 864, 864, 2, generator=gen, device="cuda")
+    calls = [(ops.windowed_warp, rn(2, hw, hw, 9), speckled_flow(gen, 2, hw, hw)) for hw in (560, 864)]
+    calls += [(ops.windowed_warp, rn(2, 864, 864, 9), wild),
+              (windowed_grid_sample, rn(2, 864, 864, 9), gentle_flow(gen, 2, 864, 864))]
+    blocks = refiner_blocks(gen)
+    calls += [(ops.fused_refiner_stack_packed, rn(2, hw, hw, 24), blocks) for hw in (560, 864)]
+    zero_counts()
+    outs = [fn(x, arg) for fn, x, arg in calls]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"windowed samplers and packed stack, bf16: launches {counts}", flush=True)
+    for (_, x, _), o in zip(calls, outs):  # every output here has its input's shape
+        require(o.shape == x.shape and bool(torch.isfinite(o).all()), "windowed path: bad output")
+    for name in WINDOW_KERNELS:
+        results[name]["launches"] = counts[name]
+    require(all(counts[k] >= 1 for k in WINDOW_KERNELS), f"windowed path launches {counts}")
+
+
 def main() -> int:
     import torch
 
@@ -570,11 +866,13 @@ def main() -> int:
 
     results = {
         name: {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": 0,
-               "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+               "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": None,
+               "library_ms": None, "_bytes_ms": 0.0, "_ops_ms": 0.0}
         for name, (src, rep) in KERNEL_INFO.items()
     }
     check_kernels(results)
     check_attention_kernels(results)
+    check_window_kernels(results)
     check_small_match()
 
     t0 = time.perf_counter()
@@ -619,8 +917,12 @@ def main() -> int:
     train_full_width(results)
     torch.cuda.empty_cache()
     run_sdpa_path(results)
+    torch.cuda.empty_cache()
+    run_window_path(results)
     missing = [n for n, r in results.items() if r["launches"] == 0]
     require(not missing, f"kernels never launched: {missing}")
+    for r in results.values():
+        r["bound_by"] = "bytes" if r.pop("_bytes_ms") >= r.pop("_ops_ms") else "operations"
 
     torch.cuda.synchronize()
     print(json.dumps({"kernels": list(results.values())}))

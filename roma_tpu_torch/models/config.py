@@ -44,19 +44,20 @@ class RoMaConfig:
     dino_depth: int = 24
     dino_heads: int = 16
     dino_patch: int = 14
-    # serving-only: run the frozen DINOv2's Dense layers via dynamic int8
-    # (ops/int8.py) — v5e int8 MXU is 2x bf16. Changes numerics; validate
-    # golden metrics before enabling in production.
+    # serving-only: run the frozen DINOv2's Dense layers in dynamic int8
+    # (the JAX package's ops/int8.py; not ported yet). Changes numerics;
+    # validate golden metrics before enabling in production.
     vit_int8: bool = False
-    # serving-only: refiner hidden 1x1 convs via dynamic int8 (the wide-C
-    # stacks are matmul-bound at C up to 1377). Inference only — ignored
-    # in train mode (round() has zero gradient). Same validation caveat.
+    # serving-only: the refiners' hidden 1x1 convs in dynamic int8 (the
+    # wide-C stacks, C up to 1377, are mostly matmul). Inference only,
+    # ignored in train mode (round() has zero gradient). Not ported yet;
+    # same validation caveat.
     refiner_int8: bool = False
-    # serving-only: tanh-approximate GELU in the frozen DINOv2 MLPs.
-    # torch nn.GELU default is exact erf (reference layers/mlp.py:21), which
-    # the TPU VPU pays ~1.8 ms/block for at 560^2; the tanh form is measured
-    # 5.17 -> 3.34 ms/block (~44 ms end-to-end). Max |d gelu| <= ~3e-4
-    # absolute — far below the int8 drift; same golden-metric caveat.
+    # serving-only: tanh-approximate GELU in the frozen DINOv2 MLPs instead
+    # of the exact erf form of torch's nn.GELU default (reference
+    # layers/mlp.py:21). The two differ by at most ~3e-4 absolute per
+    # activation; same golden-metric caveat. roma_outdoor(amp=True) turns
+    # it on, as the JAX package's default does.
     vit_gelu_tanh: bool = False
     # GP + transformer match proposer
     gp_dim: int = 512

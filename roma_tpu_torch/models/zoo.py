@@ -4,7 +4,10 @@
 seeded random weights, as the JAX package does offline: loading the released
 checkpoint waits until the weights are available. Parameters are made on the
 meta device and filled in place on ``device``, so no second copy is ever
-made. ``amp=True`` runs in bfloat16 with the JAX package's float32 islands:
+made. ``device`` defaults to ``"cuda"`` in every constructor here: a caller
+who wants the CPU passes ``device="cpu"``, and on a machine without a card
+the default raises instead of building on the CPU. ``amp=True`` runs in
+bfloat16 with the JAX package's float32 islands:
 the GP (kernel matrices, Cholesky, triangular solves) and every refiner's
 out_conv.
 
@@ -56,14 +59,14 @@ def set_precision(net: RoMaNet, dtype: torch.dtype) -> RoMaNet:
     return net
 
 
-def build_net(config: RoMaConfig, device="cpu") -> RoMaNet:
+def build_net(config: RoMaConfig, device="cuda") -> RoMaNet:
     """Unfilled RoMaNet on ``device`` (allocated, not initialized)."""
     with torch.device("meta"):
         net = RoMaNet(config)
     return net.to_empty(device=device)
 
 
-def train_net(config: RoMaConfig | None = None, device="cpu", seed: int = 0) -> RoMaNet:
+def train_net(config: RoMaConfig | None = None, device="cuda", seed: int = 0) -> RoMaNet:
     """RoMaNet in training mode on seeded random weights: float32
     parameters, DINOv2 frozen (no grad, so no optimizer state or decay),
     BatchNorms updating their running stats."""
@@ -71,7 +74,7 @@ def train_net(config: RoMaConfig | None = None, device="cpu", seed: int = 0) -> 
 
 
 def roma_outdoor(
-    device="cpu",
+    device="cuda",
     seed: int = 0,
     amp: bool = True,
     coarse_res: int | tuple[int, int] = 560,

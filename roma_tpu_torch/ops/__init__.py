@@ -12,27 +12,40 @@ from .grid_sample import grid_sample
 from .interpolate import interpolate
 from .kde import kde
 from .local_corr import local_correlation, local_correlation_reference
-from .refiner_stack import fold_block, fold_refiner, fused_refiner_stack, refiner_stack_reference
+from .refiner_stack import (
+    fold_block,
+    fold_refiner,
+    fused_refiner_stack,
+    fused_refiner_stack_packed,
+    refiner_stack_reference,
+)
 from .sampling import balanced_sample, multinomial_no_replacement
+from .tile_window import WarpSpec, warp_tiles, warp_tiles_reference, warp_tiles_v1, windowed_warp
 from .warp_sample import warp_sample, warp_sample_reference
+from .window_util import compact_miss, compact_miss_reference
 
 # the hand-written kernels' wrappers, each with a ``launches`` count
 KERNEL_WRAPPERS = (fused_attention_packed, local_correlation, warp_sample, fused_refiner_stack,
-                   fused_attention_backward, fused_attention)
+                   fused_attention_backward, fused_attention, compact_miss, warp_tiles,
+                   warp_tiles_v1, fused_refiner_stack_packed)
 
 __all__ = [
     "KERNEL_WRAPPERS",
+    "WarpSpec",
     "attention_backward_reference",
     "attention_packed_reference",
     "balanced_sample",
     "batched_grid",
     "cls_to_flow_refine",
+    "compact_miss",
+    "compact_miss_reference",
     "fold_block",
     "fold_refiner",
     "fused_attention",
     "fused_attention_backward",
     "fused_attention_packed",
     "fused_refiner_stack",
+    "fused_refiner_stack_packed",
     "grid_sample",
     "interpolate",
     "kde",
@@ -45,4 +58,8 @@ __all__ = [
     "sdpa_reference",
     "warp_sample",
     "warp_sample_reference",
+    "warp_tiles",
+    "warp_tiles_reference",
+    "warp_tiles_v1",
+    "windowed_warp",
 ]

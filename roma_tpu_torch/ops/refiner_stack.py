@@ -1,4 +1,4 @@
-"""Kernel D: the narrow ConvRefiner stack with BatchNorm folded in.
+"""Kernels D and H: the narrow ConvRefiner stack with BatchNorm folded in.
 
 Replaces roma_tpu/ops/pallas_refiner.py:_cmajor_kernel (entry
 ``fused_refiner_stack``, routed at roma_tpu/models/matcher.py:265-275 for
@@ -7,9 +7,11 @@ block is a depthwise KxK conv with the BatchNorm folded in (:func:`fold_block`),
 bias, ReLU and a round to the I/O dtype, then a CxC 1x1 conv, bias and a
 round, with zero SAME padding.
 
-On the H100 the kernel (csrc/refiner_stack.cu) runs once per folded block;
-its design note is in the source. A CPU tensor takes the plain version
-:func:`refiner_stack_reference`.
+On the H100 Kernel D (csrc/refiner_stack.cu) runs once per folded block;
+Kernel H (csrc/refiner_chain.cu, :func:`fused_refiner_stack_packed`) runs a
+group of blocks per launch, as roma_tpu/ops/pallas_refiner.py's packed
+kernel does. Their design notes are in the sources. A CPU tensor takes the
+plain version :func:`refiner_stack_reference`, the function of both.
 """
 from __future__ import annotations
 
@@ -93,3 +95,55 @@ def fused_refiner_stack(x: torch.Tensor, blocks: list[dict]) -> torch.Tensor:
 
 
 fused_refiner_stack.launches = 0
+
+
+def fused_refiner_stack_packed(x: torch.Tensor, blocks: list[dict], s_rows: int = 32,
+                               cg: int = 8) -> torch.Tensor:
+    """The same chain as :func:`fused_refiner_stack`, several blocks per launch.
+
+    Kernel H (csrc/refiner_chain.cu) replaces
+    roma_tpu/ops/pallas_refiner.py:_cmajor_packed_kernel (entry
+    ``_fused_cmajor_packed``): one launch runs a group of blocks over a tile
+    with a halo of 2 pixels per block, the intermediate planes in shared
+    memory. ``s_rows`` (the tile's rows) and ``cg`` (the depthwise loop's
+    channel chunk, at most 8 on the card) are tiling knobs, as on the TPU:
+    they change nothing in the output. The function is the same as Kernel
+    D's, so a CPU tensor takes :func:`refiner_stack_reference`.
+    """
+    if s_rows < 1 or cg < 1:
+        raise ValueError(f"fused_refiner_stack_packed: s_rows={s_rows} and cg={cg} must be >= 1")
+    if x.device.type == "cpu":
+        return refiner_stack_reference(x, blocks)
+    what = "fused_refiner_stack_packed"
+    _ext.require_cuda(what, x)
+    b, h, w, c = x.shape
+    if c > MAX_C:
+        raise ValueError(f"{what}: C={c} above the kernel's {MAX_C}")
+    if not blocks:
+        return x
+    k = blocks[0]["dw"].shape[0]
+    shapes = [tuple(blk[n].shape) for blk in blocks for n in ("dw", "db", "w2", "b2")]
+    if shapes != [(k, k, c), (c,), (c, c), (c,)] * len(blocks) or k % 2 == 0:
+        raise ValueError(f"{what}: folded blocks must be dw (K, K, C) with K odd, db (C,), "
+                         f"w2 (C, C), b2 (C,); got {shapes}")
+    ws = [torch.stack([blk[n] for blk in blocks]) for n in ("dw", "db", "w2", "b2")]
+    _ext.require_cuda(what, x, *ws)
+    if any(t.dtype != torch.float32 for t in ws):
+        raise ValueError(f"{what}: folded blocks must be float32")
+    code = _ext.dtype_code(x, what)
+    g = 3 if x.element_size() == 2 else 2  # blocks a launch; the entry picks the tile that fits
+    lib = _ext.lib()
+    for i in range(0, len(blocks), g):
+        n = min(g, len(blocks) - i)
+        out = torch.empty_like(x)
+        rc = lib.roma_refiner_chain(
+            x.data_ptr(), *(t[i].data_ptr() for t in ws), out.data_ptr(),
+            b, h, w, c, k, n, s_rows, cg, code, _ext.stream(),
+        )
+        _ext.check(rc, what)
+        fused_refiner_stack_packed.launches += 1
+        x = out
+    return x
+
+
+fused_refiner_stack_packed.launches = 0

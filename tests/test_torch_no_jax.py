@@ -1,34 +1,44 @@
-"""The port stands alone: it imports no JAX, Flax, Optax, Orbax or roma_tpu
-(the training package included), and on CPU tensors every kernel wrapper
-runs its plain version without launching."""
+"""The port stands alone: it imports no JAX, Flax, Optax, Orbax, roma_tpu or
+graveyard (the training package included), its entry points build on the
+card unless asked for the CPU, and on CPU tensors every kernel wrapper runs
+its plain version without launching."""
 import ast
 import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 import roma_tpu_torch
+from roma_tpu_torch.models import RoMaConfig, roma_outdoor, train_net
+from roma_tpu_torch.models.zoo import build_net
 from roma_tpu_torch.ops import (
     KERNEL_WRAPPERS,
     attention_backward_reference,
     attention_packed_reference,
+    compact_miss,
+    compact_miss_reference,
     fold_block,
     fused_attention,
     fused_attention_backward,
     fused_attention_packed,
     fused_refiner_stack,
+    fused_refiner_stack_packed,
     local_correlation,
     local_correlation_reference,
     refiner_stack_reference,
     sdpa_reference,
     warp_sample,
     warp_sample_reference,
+    warp_tiles,
+    warp_tiles_reference,
+    warp_tiles_v1,
 )
 
 PKG = Path(roma_tpu_torch.__file__).parent
-BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "roma_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "roma_tpu", "graveyard")
 
 
 def test_imports_and_matches_with_jax_blocked():
@@ -38,13 +48,13 @@ def test_imports_and_matches_with_jax_blocked():
         "import numpy as np\n"
         "from roma_tpu_torch import roma_outdoor, RoMaConfig\n"
         "import roma_tpu_torch.train\n"
-        "m = roma_outdoor(amp=False, coarse_res=56, upsample_res=64, config=RoMaConfig.tiny())\n"
+        "m = roma_outdoor(device=\"cpu\", amp=False, coarse_res=56, upsample_res=64, config=RoMaConfig.tiny())\n"
         "rs = np.random.RandomState(0)\n"
         "w, c = m.match(rs.randn(56, 56, 3).astype('float32'), rs.randn(56, 56, 3).astype('float32'))\n"
         "assert tuple(w.shape) == (64, 128, 4) and tuple(c.shape) == (64, 128)\n"
         "loaded = [k for k, v in sys.modules.items() if v is not None]\n"
         "assert not any(k == b or k.startswith(b + '.') for k in loaded\n"
-        "               for b in ('roma_tpu', 'flax', 'optax', 'orbax'))\n"
+        "               for b in ('roma_tpu', 'flax', 'optax', 'orbax', 'graveyard'))\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -86,4 +96,27 @@ def test_cpu_tensors_take_the_plain_versions():
     got = fused_attention_backward(q, k, v, None, None, g, *grads, n_valid=60)
     for a, b in zip(got, attention_backward_reference(q, k, v, g, 60)):
         assert torch.equal(a, b)
-    assert [f.launches for f in KERNEL_WRAPPERS] == counts == [0] * 6
+    miss = torch.from_numpy(rs.rand(6, 1, 64) < 0.2)
+    assert torch.equal(compact_miss(miss, 64, 8), compact_miss_reference(miss, 64, 8))
+    ri = lambda lo, hi, *s: torch.from_numpy(rs.randint(lo, hi, s).astype(np.int32))
+    tiles = (f1, ri(-2, 12, 6, 64), ri(-2, 14, 6, 64), t(6, 64).abs() % 1, t(6, 64).abs() % 1,
+             ri(0, 6, 6), ri(0, 6, 6), ri(0, 65, 6, 8, 1), t(6, 8, 16), 12, 14, 4)
+    for wrapper in (warp_tiles, warp_tiles_v1):
+        assert torch.equal(wrapper(*tiles), warp_tiles_reference(*tiles))
+    assert torch.equal(fused_refiner_stack_packed(x, blocks * 3, cg=3), refiner_stack_reference(x, blocks * 3))
+    assert [f.launches for f in KERNEL_WRAPPERS] == counts == [0] * 10
+
+
+def test_entry_points_default_to_the_card():
+    """roma_outdoor, train_net and build_net build on the card unless the
+    caller asks for the CPU; without a card they raise."""
+    cfg = RoMaConfig.tiny()
+    builds = (lambda: roma_outdoor(config=cfg, amp=False, coarse_res=56, upsample_res=64).net,
+              lambda: train_net(cfg), lambda: build_net(cfg))
+    for build in builds:
+        if torch.cuda.is_available():
+            assert next(build().parameters()).is_cuda
+        else:
+            with pytest.raises((AssertionError, RuntimeError)):
+                build()
+    assert not next(build_net(cfg, "cpu").parameters()).is_cuda

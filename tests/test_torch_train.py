@@ -451,7 +451,7 @@ def _flat(tree: dict, prefix: str = "") -> dict:
 # --- repairs of the port against the JAX API --------------------------------
 
 def test_sample_takes_a_key():
-    m = roma_outdoor(amp=False, coarse_res=56, upsample_res=64, config=RoMaConfig.tiny())
+    m = roma_outdoor(device="cpu", amp=False, coarse_res=56, upsample_res=64, config=RoMaConfig.tiny())
     rs = np.random.RandomState(0)
     warp = torch.from_numpy(rs.uniform(-1, 1, (64, 128, 4)).astype(np.float32))
     cert = torch.from_numpy(rs.uniform(0, 1, (64, 128)).astype(np.float32))
