@@ -29,8 +29,17 @@
    against warp_sample_reference, asserting which branch each case took;
    Kernel H against refiner_stack_reference and Kernel D. After 7, drives
    those entries once as a caller does and counts F, G and H's launches.
-9. Prints one JSON line of per-kernel results (each kernel's launches are
-   counted over the phase of 4, 6, 7 or 8 that runs it; its bound_ms is the
+9. Right after 8, checks Kernels I and J (the wide-C refiner blocks)
+   against wide_refiner_stack_reference at the seven shapes the 560 -> 864
+   match gives the wide-C stacks (B = 2, 9 blocks folded from refiner_block
+   modules, bf16 and f32) and times them beside the plain version and the
+   model's own cuDNN block stack on the same modules; then Kernel K's two
+   entries and Kernel L against their plain versions at
+   tools/bench_onehot_dots.py's sizes. After 8's caller run, drives
+   lane_refiner_stack, hcw_refiner_stack and the port tools' e1 / e2 once
+   as a caller does and counts I, J, K and L's launches.
+10. Prints one JSON line of per-kernel results (each kernel's launches are
+   counted over the phase of 4, 6, 7, 8 or 9 that runs it; its bound_ms is the
    least time the card could take for the same work, from the bytes each
    input and output moves once and the operations over the peaks below;
    library_ms is one PyTorch call that computes the same function, where
@@ -83,7 +92,14 @@ KERNEL_INFO = {
     "warp_tiles": ("roma_tpu_torch/csrc/window_warp.cu", "roma_tpu/ops/tile_window.py:123"),
     "warp_tiles_v1": ("roma_tpu_torch/csrc/window_warp.cu", "graveyard/window_warp_v1.py:86"),
     "fused_refiner_stack_packed": ("roma_tpu_torch/csrc/refiner_chain.cu", "roma_tpu/ops/pallas_refiner.py:279"),
+    "lane_refiner_block": ("roma_tpu_torch/csrc/wide_refiner.cu", "graveyard/pallas_refiner_lanemajor.py:34"),
+    "hcw_refiner_block": ("roma_tpu_torch/csrc/wide_refiner.cu", "graveyard/pallas_hcw_refiner.py:70"),
+    "onehot_dot": ("roma_tpu_torch/csrc/onehot_dots.cu", "tools/bench_onehot_dots.py:44"),
+    "window_sum": ("roma_tpu_torch/csrc/onehot_dots.cu", "tools/bench_onehot_dots.py:119"),
 }
+# Kernel K's two entries, each the port of one TPU kernel body
+ONEHOT_ENTRIES = (("f32", "onehot_dot_f32", "tools/bench_onehot_dots.py:44"),
+                  ("2bf16", "onehot_dot_2bf16", "tools/bench_onehot_dots.py:61"))
 # the kernels each driven phase must launch; the training step must launch
 # none of the forward-only ones
 MATCH_KERNELS = ("fused_attention_packed", "local_correlation", "warp_sample", "fused_refiner_stack")
@@ -91,13 +107,15 @@ TRAIN_KERNELS = ("fused_attention_packed", "fused_attention_backward")
 FORWARD_ONLY = ("local_correlation", "warp_sample", "fused_refiner_stack")
 SDPA_KERNELS = ("fused_attention", "fused_attention_backward")
 WINDOW_KERNELS = ("compact_miss", "warp_tiles", "warp_tiles_v1", "fused_refiner_stack_packed")
+GRAVEYARD_KERNELS = ("lane_refiner_block", "hcw_refiner_block", "onehot_dot", "window_sum")
 
 # the least time of a kernel's work: the larger of its bytes (each input read
 # once, each output written once) over the memory rate and its operations
 # over the peak for their type (H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16_TENSOR = 989e12  # bf16 x bf16 products: attention, B's dot products in bf16
-PEAK_F32 = 67e12  # CUDA cores: the rest (D and H's pointwise is f32 x f32, as on the TPU; F's int ops)
+PEAK_F32 = 67e12  # CUDA cores: the rest (D and H's pointwise is f32 x f32, as on the TPU; F's int ops;
+# I and J's f32 product and every depthwise)
 
 
 @dataclass
@@ -305,6 +323,7 @@ def record(r, err, case: Case, dtype: str = "bf16"):
     print(f"{r['name']:26s} {case.label:30s} {dtype:8s} kernel {ms:.4f} ms  plain {pms:.4f} ms{lib}  "
           f"bound {max(bytes_ms, ops_ms):.4f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'})",
           flush=True)
+    return ms, pms
 
 
 def check_kernels(results):
@@ -837,6 +856,166 @@ def run_window_path(results):
     require(all(counts[k] >= 1 for k in WINDOW_KERNELS), f"windowed path launches {counts}")
 
 
+# the wide-C refiner stacks of the 560 -> 864 match (roma_tpu_torch/tools/
+# bench_hcw_refiner.py's SHAPES): (label, H = W, C)
+WIDE_SHAPES = (("coarse s16 35^2 C1377", 35, 1377), ("coarse s8 70^2 C1137", 70, 1137),
+               ("coarse s4 140^2 C569", 140, 569), ("coarse s2 280^2 C144", 280, 144),
+               ("upsample s8 108^2 C1137", 108, 1137), ("upsample s4 216^2 C569", 216, 569),
+               ("upsample s2 432^2 C144", 432, 144))
+
+
+def wide_cost(x, blocks, dt):
+    """(bytes, ops, f32_ops, peak) of a folded wide-C stack: each block's
+    input and output once plus its weights; the CxC product at the peak of
+    its operands (bf16 tensor cores in bf16, CUDA cores in f32) and the
+    depthwise on the CUDA cores beside it."""
+    import torch
+
+    npx, c = x.numel() // x.shape[-1], x.shape[-1]
+    n = len(blocks)
+    nbytes = n * (2 * x.numel() * x.element_size() + 4 * (25 * c + c * c + 2 * c))
+    return (nbytes, 2 * n * npx * c * c, 2 * 25 * n * npx * c,
+            PEAK_BF16_TENSOR if dt == torch.bfloat16 else PEAK_F32)
+
+
+def check_wide_kernels(results):
+    """Kernels I and J against wide_refiner_stack_reference at WIDE_SHAPES
+    (B = 2, 9 blocks folded from refiner_block modules), bf16 and f32; the
+    bf16 times beside the model's cuDNN block stack on the same modules. J
+    runs on the (B, H, C, W) copy of the input, made outside the timed
+    window."""
+    import torch
+
+    from roma_tpu_torch import ops
+    from roma_tpu_torch.tools.bench_hcw_refiner import make_modules, model_stack
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for label, hw, c in WIDE_SHAPES:
+        with torch.no_grad():
+            mods = make_modules(c, gen, "cuda")
+            blocks = ops.fold_refiner(mods[0], mods[1:])
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(2, hw, hw, c, generator=gen, device="cuda").to(dt)
+            xt = x.permute(0, 1, 3, 2).contiguous()
+            nbytes, nops, dw_ops, peak = wide_cost(x, blocks, dt)
+
+            def chain(fn, y):
+                for blk in blocks:
+                    y = fn(y, blk)
+                return y
+
+            cases = (Case("lane_refiner_block", label, lambda: chain(ops.lane_refiner_block, x),
+                          lambda: ops.wide_refiner_stack_reference(x, blocks), bytes=nbytes, ops=nops, peak=peak,
+                          f32_ops=dw_ops),
+                     Case("hcw_refiner_block", label, lambda: chain(ops.hcw_refiner_block, xt),
+                          lambda: ops.wide_refiner_stack_reference(x, blocks).permute(0, 1, 3, 2),
+                          bytes=nbytes, ops=nops, peak=peak, f32_ops=dw_ops))
+            for case in cases:
+                err = check_output(case.name, label, dt, case.kern(), case.plain())
+                if dt == torch.bfloat16:
+                    record(results[case.name], err, case)
+            if dt == torch.bfloat16:
+                with torch.no_grad():
+                    ms = cuda_ms(lambda: model_stack(x, mods))
+                print(f"{'':26s} {label:30s} bf16     model cuDNN block stack {ms:.4f} ms", flush=True)
+            del x, xt
+        del mods, blocks
+        torch.cuda.empty_cache()
+
+
+def check_onehot_kernels(results):
+    """Kernel K's two entries and Kernel L against their plain versions on
+    tools/bench_onehot_dots.py's inputs at its sizes; L's time beside one
+    index_select of the window rows and a float32 sum. K's bound counts one
+    32-byte sector per window row its taps touch, L's the table rows its
+    windows cover, each once (the windows overlap)."""
+    import torch
+
+    from roma_tpu_torch import ops
+    from roma_tpu_torch.tools import bench_onehot_dots as bo
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    win, yl, fy = bo.e1_inputs(gen)
+    nq = yl.numel()
+    # one 32-byte sector of column 0 for each (tile, row) this run's taps touch
+    touched = torch.zeros(win.shape[0], bo.WH + 1, dtype=torch.bool, device="cuda")
+    rows = torch.cat((yl, yl + 1), 1).long()
+    rows = torch.where((rows >= 0) & (rows < bo.WH), rows, bo.WH)
+    touched.scatter_(1, rows.view(win.shape[0], -1), True)
+    sectors = int(touched[:, : bo.WH].sum())
+    r = results["onehot_dot"]
+    r["entries"] = []
+    for form, entry, rep in ONEHOT_ENTRIES:
+        case = Case("onehot_dot", f"E1 {form} NT3136 x 4096", lambda f=entry: getattr(ops, f)(win, yl, fy),
+                    lambda: ops.onehot_dot_reference(win, yl, fy), bytes=12 * nq + 32 * sectors,
+                    ops=3 * nq)
+        err = check_output(case.name, case.label, torch.float32, case.kern(), case.plain())
+        ms, pms = record(r, err, case, "bf16 win")
+        r["entries"].append({"entry": entry, "replaces": rep, "ms": ms, "plain_ms": pms, "max_abs_err": err})
+    print(f"{'':26s} {'E1':30s} column-0 sectors touched {sectors} of {win.shape[0] * bo.WH}", flush=True)
+    del win, yl, fy, touched, rows
+
+    tab, oy, jx, img = bo.e2_inputs(gen)
+    nwin = oy.numel() * bo.WH * bo.NS * bo.XQC
+    # the windows overlap: the bytes the function must read are the table
+    # rows that some window covers, each once
+    rows = ops.onehot_dots.window_rows(tab, oy, jx, img, bo.WH, bo.NS).reshape(-1)
+    used = torch.zeros(tab.numel() // bo.XQC, dtype=torch.bool, device="cuda")
+    used[rows] = True
+    nrows = int(used.sum())
+    case = Case("window_sum", "E2 NT3024 x 128x3x1152", lambda: ops.window_sum(tab, oy, jx, img, bo.WH, bo.NS),
+                lambda: ops.window_sum_reference(tab, oy, jx, img, bo.WH, bo.NS),
+                bytes=2 * bo.XQC * nrows + 16 * oy.numel(), ops=nwin)
+    err = check_output(case.name, case.label, torch.float32, case.kern(), case.plain())
+    record(results["window_sum"], err, case)
+    print(f"{'':26s} {case.label:30s} table rows covered {nrows} of {used.numel()}, window bytes "
+          f"{2 * nwin} ({2e3 * nwin / HBM_BYTES_PER_S:.4f} ms at the memory rate)", flush=True)
+    tabf = tab.view(-1, bo.XQC)
+    ms = cuda_ms(lambda: tabf.index_select(0, rows).view(oy.numel(), -1).sum(1, dtype=torch.float32))
+    print(f"{'':26s} {case.label:30s} bf16     index_select + sum {ms:.4f} ms", flush=True)
+    del tab, oy, jx, img, rows, used, tabf
+    torch.cuda.empty_cache()
+
+
+def run_graveyard_path(results):
+    """The wide-C stack entries and the microbenchmark tools as a caller
+    uses them: lane_refiner_stack and hcw_refiner_stack on the upsample
+    pass's scale-8 stack (108^2, C 1137, B = 2, bf16), then the port tools'
+    e1() and e2() at their defaults. Counts I, J, K and L's launches."""
+    import torch
+
+    from roma_tpu_torch import ops
+    from roma_tpu_torch.graveyard.pallas_hcw_refiner import hcw_refiner_stack
+    from roma_tpu_torch.graveyard.pallas_refiner_lanemajor import lane_refiner_stack
+    from roma_tpu_torch.tools import bench_onehot_dots as bo
+    from roma_tpu_torch.tools.bench_hcw_refiner import make_modules
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    with torch.no_grad():
+        mods = make_modules(1137, gen, "cuda")
+        blocks = ops.fold_refiner(mods[0], mods[1:])
+    x = torch.randn(2, 108, 108, 1137, generator=gen, device="cuda").to(torch.bfloat16)
+    zero_counts()
+    lane, hcw = lane_refiner_stack(x, blocks), hcw_refiner_stack(x, blocks)
+    r1 = bo.e1()
+    torch.cuda.empty_cache()
+    r2 = bo.e2()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"wide-C stacks and the microbenchmark tools, as callers: launches {counts}", flush=True)
+    for o in (lane, hcw):
+        require(o.shape == x.shape and o.dtype == x.dtype and bool(torch.isfinite(o).all()), "wide stack: bad output")
+    check_output("hcw_refiner_stack", "vs lane_refiner_stack 108^2", torch.bfloat16, hcw, lane)
+    (f32, _), (two, _) = r1["f32"], r1["2bf16"]
+    check_output("onehot_dot", "e1 f32 vs 2bf16 entry", torch.float32, f32, two)
+    sums, _ = r2["sums"]
+    require(tuple(sums.shape) == (bo.NT2, 1) and bool(torch.isfinite(sums).all()), "e2: bad window sums")
+    for name in GRAVEYARD_KERNELS:
+        results[name]["launches"] = counts[name]
+    require(counts["lane_refiner_block"] == counts["hcw_refiner_block"] == len(blocks)
+            and all(counts[k] >= 1 for k in GRAVEYARD_KERNELS), f"graveyard path launches {counts}")
+
+
 def main() -> int:
     import torch
 
@@ -873,6 +1052,8 @@ def main() -> int:
     check_kernels(results)
     check_attention_kernels(results)
     check_window_kernels(results)
+    check_wide_kernels(results)
+    check_onehot_kernels(results)
     check_small_match()
 
     t0 = time.perf_counter()
@@ -919,7 +1100,9 @@ def main() -> int:
     run_sdpa_path(results)
     torch.cuda.empty_cache()
     run_window_path(results)
-    missing = [n for n, r in results.items() if r["launches"] == 0]
+    torch.cuda.empty_cache()
+    run_graveyard_path(results)
+    missing =[n for n, r in results.items() if r["launches"] == 0]
     require(not missing, f"kernels never launched: {missing}")
     for r in results.values():
         r["bound_by"] = "bytes" if r.pop("_bytes_ms") >= r.pop("_ops_ms") else "operations"

@@ -12,6 +12,14 @@ from .grid_sample import grid_sample
 from .interpolate import interpolate
 from .kde import kde
 from .local_corr import local_correlation, local_correlation_reference
+from .onehot_dots import (
+    onehot_dot,
+    onehot_dot_2bf16,
+    onehot_dot_f32,
+    onehot_dot_reference,
+    window_sum,
+    window_sum_reference,
+)
 from .refiner_stack import (
     fold_block,
     fold_refiner,
@@ -22,12 +30,14 @@ from .refiner_stack import (
 from .sampling import balanced_sample, multinomial_no_replacement
 from .tile_window import WarpSpec, warp_tiles, warp_tiles_reference, warp_tiles_v1, windowed_warp
 from .warp_sample import warp_sample, warp_sample_reference
+from .wide_refiner import hcw_refiner_block, lane_refiner_block, wide_refiner_stack_reference
 from .window_util import compact_miss, compact_miss_reference
 
 # the hand-written kernels' wrappers, each with a ``launches`` count
 KERNEL_WRAPPERS = (fused_attention_packed, local_correlation, warp_sample, fused_refiner_stack,
                    fused_attention_backward, fused_attention, compact_miss, warp_tiles,
-                   warp_tiles_v1, fused_refiner_stack_packed)
+                   warp_tiles_v1, fused_refiner_stack_packed, lane_refiner_block, hcw_refiner_block,
+                   onehot_dot, window_sum)
 
 __all__ = [
     "KERNEL_WRAPPERS",
@@ -47,12 +57,18 @@ __all__ = [
     "fused_refiner_stack",
     "fused_refiner_stack_packed",
     "grid_sample",
+    "hcw_refiner_block",
     "interpolate",
     "kde",
+    "lane_refiner_block",
     "local_correlation",
     "local_correlation_reference",
     "multinomial_no_replacement",
     "normalized_grid",
+    "onehot_dot",
+    "onehot_dot_2bf16",
+    "onehot_dot_f32",
+    "onehot_dot_reference",
     "refiner_stack_reference",
     "sdpa",
     "sdpa_reference",
@@ -61,5 +77,8 @@ __all__ = [
     "warp_tiles",
     "warp_tiles_reference",
     "warp_tiles_v1",
+    "wide_refiner_stack_reference",
+    "window_sum",
+    "window_sum_reference",
     "windowed_warp",
 ]

@@ -49,9 +49,12 @@ def fold_refiner(block1, hidden_blocks) -> list[dict]:
     return [fold(block1)] + [fold(blk) for blk in hidden_blocks]
 
 
-def refiner_stack_reference(x: torch.Tensor, blocks: list[dict]) -> torch.Tensor:
+def refiner_stack_reference(x: torch.Tensor, blocks: list[dict], round_w2: bool = False) -> torch.Tensor:
     """Plain PyTorch version, folded math in float32 with the I/O-dtype
-    rounding after each stage (the TPU kernel's stores)."""
+    rounding after each stage (the TPU kernel's stores). ``round_w2`` also
+    rounds the pointwise weights to the I/O dtype before the product, as the
+    wide-C kernels and roma_tpu/ops/pallas_refiner.py:refiner_stack_reference
+    do; Kernels D and H keep them in float32."""
     dt = x.dtype
     c = x.shape[-1]
     y = x.permute(0, 3, 1, 2)
@@ -60,7 +63,8 @@ def refiner_stack_reference(x: torch.Tensor, blocks: list[dict]) -> torch.Tensor
         wdw = blk["dw"].permute(2, 0, 1)[:, None]  # (C, 1, K, K)
         t = F.conv2d(y.float(), wdw, blk["db"], padding=k // 2, groups=c)
         t = torch.relu(t).to(dt).float()
-        y = F.conv2d(t, blk["w2"].T[:, :, None, None], blk["b2"]).to(dt)
+        w2 = blk["w2"].to(dt).float() if round_w2 else blk["w2"]
+        y = F.conv2d(t, w2.T[:, :, None, None], blk["b2"]).to(dt)
     return y.permute(0, 2, 3, 1)
 
 

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports no JAX, Flax, Optax, Orbax, roma_tpu or
-graveyard (the training package included), its entry points build on the
+"""The port stands alone: it imports no JAX, Flax, Optax, Orbax, roma_tpu,
+graveyard or tools (the training package, the port's graveyard and tools
+included), its entry points build on the
 card unless asked for the CPU, and on CPU tensors every kernel wrapper runs
 its plain version without launching."""
 import ast
@@ -26,8 +27,12 @@ from roma_tpu_torch.ops import (
     fused_attention_packed,
     fused_refiner_stack,
     fused_refiner_stack_packed,
+    hcw_refiner_block,
+    lane_refiner_block,
     local_correlation,
     local_correlation_reference,
+    onehot_dot,
+    onehot_dot_reference,
     refiner_stack_reference,
     sdpa_reference,
     warp_sample,
@@ -35,10 +40,13 @@ from roma_tpu_torch.ops import (
     warp_tiles,
     warp_tiles_reference,
     warp_tiles_v1,
+    wide_refiner_stack_reference,
+    window_sum,
+    window_sum_reference,
 )
 
 PKG = Path(roma_tpu_torch.__file__).parent
-BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "roma_tpu", "graveyard")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "roma_tpu", "graveyard", "tools")
 
 
 def test_imports_and_matches_with_jax_blocked():
@@ -48,13 +56,15 @@ def test_imports_and_matches_with_jax_blocked():
         "import numpy as np\n"
         "from roma_tpu_torch import roma_outdoor, RoMaConfig\n"
         "import roma_tpu_torch.train\n"
+        "import roma_tpu_torch.graveyard.pallas_hcw_refiner, roma_tpu_torch.graveyard.pallas_refiner_lanemajor\n"
+        "import roma_tpu_torch.tools.bench_onehot_dots, roma_tpu_torch.tools.bench_hcw_refiner\n"
         "m = roma_outdoor(device=\"cpu\", amp=False, coarse_res=56, upsample_res=64, config=RoMaConfig.tiny())\n"
         "rs = np.random.RandomState(0)\n"
         "w, c = m.match(rs.randn(56, 56, 3).astype('float32'), rs.randn(56, 56, 3).astype('float32'))\n"
         "assert tuple(w.shape) == (64, 128, 4) and tuple(c.shape) == (64, 128)\n"
         "loaded = [k for k, v in sys.modules.items() if v is not None]\n"
         "assert not any(k == b or k.startswith(b + '.') for k in loaded\n"
-        "               for b in ('roma_tpu', 'flax', 'optax', 'orbax', 'graveyard'))\n"
+        "               for b in ('roma_tpu', 'flax', 'optax', 'orbax', 'graveyard', 'tools'))\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -104,7 +114,16 @@ def test_cpu_tensors_take_the_plain_versions():
     for wrapper in (warp_tiles, warp_tiles_v1):
         assert torch.equal(wrapper(*tiles), warp_tiles_reference(*tiles))
     assert torch.equal(fused_refiner_stack_packed(x, blocks * 3, cg=3), refiner_stack_reference(x, blocks * 3))
-    assert [f.launches for f in KERNEL_WRAPPERS] == counts == [0] * 10
+    assert torch.equal(lane_refiner_block(x, blocks[0]), wide_refiner_stack_reference(x, blocks))
+    xt = x.permute(0, 1, 3, 2).contiguous()
+    assert torch.equal(hcw_refiner_block(xt, blocks[0]),
+                       wide_refiner_stack_reference(xt.permute(0, 1, 3, 2), blocks).permute(0, 1, 3, 2))
+    win, yl, fy = t(3, 16, 5).bfloat16(), ri(-1, 16, 3, 1, 40), t(3, 1, 40).abs() % 1
+    for form in ("f32", "2bf16"):
+        assert torch.equal(onehot_dot(win, yl, fy, form), onehot_dot_reference(win, yl, fy))
+    tab, idx = t(2, 20, 4, 16).bfloat16(), [ri(0, 9, 5), ri(0, 3, 5), ri(0, 2, 5)]
+    assert torch.equal(window_sum(tab, *idx, 12, 2), window_sum_reference(tab, *idx, 12, 2))
+    assert [f.launches for f in KERNEL_WRAPPERS] == counts == [0] * 14
 
 
 def test_entry_points_default_to_the_card():
