@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port (roma_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 1. Builds the hand-written CUDA kernels from roma_tpu_torch/csrc (nvcc,
    sm_90a, one nvcc per source in parallel) and prints the build time.
@@ -22,6 +22,11 @@
    frozen backbone, the updates and the kernel launches.
 7. Runs the per-head attention op (ops.sdpa) forward and backward as a
    caller does, at the DINOv2 shape.
+   Right after 2, holds the bf16 tensor-core attention kernels (A, E) at
+   their edges: registers and spills from the build's ``-Xptxas -v``
+   report (a spill fails), ragged shapes and a packed view against the
+   plain versions, two runs of E at the full-width decoder shape bitwise
+   equal, and misaligned bf16 views refused with ValueError.
 8. Right after 2, checks the windowed samplers and the packed refiner
    stack at their design shapes (B = 2, bf16 and f32): Kernel F (compact_miss) exactly
    against its plain version; Kernel G's two entries against their plain
@@ -46,11 +51,17 @@
    there is one), the card's name and power limit, and as the last line
    {"ok": true, "device": {...}}.
 
+With ``--profile``, 4 and 6 each trace one more request (the last pair
+again) and one more step (the last batch again) with torch.profiler, after
+their counted runs, and print the wall and device time of each, the card's
+idle share, the top kernels and the port's kernels by letter.
+
 Any failure exits non-zero before the last line is printed. Without a CUDA
 device it exits non-zero at once.
 """
 from __future__ import annotations
 
+import argparse
 import importlib.metadata
 import json
 import math
@@ -58,6 +69,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import defaultdict
 from dataclasses import dataclass
 from typing import Callable
 
@@ -73,13 +85,23 @@ def require(ok, what: str):
     if not ok:
         raise SmokeFailure(what)
 
-# bf16 check: the kernel and the plain version round to bf16 at the same
-# places but sum in another order (and Kernel A keeps the softmax
-# probabilities in f32 where the plain version rounds them to bf16), so an
-# output may differ by a few bf16 ulps of the largest value.
+# bf16 check of every kernel: the kernel and its plain version round to
+# bf16 at the same kinds of places but sum in another order, so an output may
+# differ by a few bf16 ulps of the largest value.
 BF16_REL, BF16_ABS = 3e-2, 1e-2
 # f32 check (TF32 off everywhere): only the summation order differs.
 F32_REL = 1e-4
+# The bf16 attention kernels are held to a second bar as well, ATTN_ULPS
+# bf16 ulps of the largest reference value, on inputs at the model's logit
+# scale (q and k drawn so that q.k / sqrt(D) has std LOGIT_STD). Kernel A
+# rounds the unnormalized softmax numerators to bf16 for P.V and divides by
+# their f32 sum after it, sdpa_reference rounds the normalized
+# probabilities; Kernel E and attention_backward_reference both round P and
+# dS. Either way an output moves by up to two ulps of the largest value
+# (measured on an H100), while a softmax scale off by 2% moves it by 5.5 or
+# more (check_attention_kernels asserts it at every full-width shape).
+ATTN_ULPS = 4
+LOGIT_STD = 2.0
 
 KERNEL_INFO = {
     "fused_attention_packed": ("roma_tpu_torch/csrc/attention.cu", "roma_tpu/ops/pallas_attention.py:259"),
@@ -106,6 +128,7 @@ MATCH_KERNELS = ("fused_attention_packed", "local_correlation", "warp_sample", "
 TRAIN_KERNELS = ("fused_attention_packed", "fused_attention_backward")
 FORWARD_ONLY = ("local_correlation", "warp_sample", "fused_refiner_stack")
 SDPA_KERNELS = ("fused_attention", "fused_attention_backward")
+ATTENTION_KERNELS = ("fused_attention_packed", "fused_attention", "fused_attention_backward")
 WINDOW_KERNELS = ("compact_miss", "warp_tiles", "warp_tiles_v1", "fused_refiner_stack_packed")
 GRAVEYARD_KERNELS = ("lane_refiner_block", "hcw_refiner_block", "onehot_dot", "window_sum")
 
@@ -184,6 +207,29 @@ def smooth_flow(gen, b, h, w, off_band=True, scale=0.1):
     return f.contiguous()
 
 
+def bf16_ulp(x: float) -> float:
+    """The spacing of bfloat16 values at magnitude x (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
+def attn_qkv(rn, b, n, c, n_valid=None):
+    """A packed (B, N, 3C) [q | k | v] at the model's logit scale: q and k
+    at std sqrt(LOGIT_STD), v at 1; tokens at or past n_valid scaled by 5,
+    content that must stay inert."""
+    qkv = rn(b, n, 3 * c)
+    qkv[..., : 2 * c] *= LOGIT_STD ** 0.5
+    qkv[:, n_valid or n:] *= 5.0
+    return qkv
+
+
+def attn_heads(rn, b, h, n, d, n_valid=None):
+    """(B, H, N, D) q, k, v drawn as attn_qkv draws them."""
+    q, k, v = (LOGIT_STD ** 0.5 * rn(b, h, n, d), LOGIT_STD ** 0.5 * rn(b, h, n, d), rn(b, h, n, d))
+    for t in (q, k, v):
+        t[:, :, n_valid or n:] *= 5.0
+    return q, k, v
+
+
 def sdpa_library(q, k, v, n_valid):
     """F.scaled_dot_product_attention on (B, H, N, D) views, keys at or past
     n_valid masked out by a boolean key mask."""
@@ -240,8 +286,7 @@ def kernel_cases(gen, dt):
     for label, n, heads, nv in (("dinov2 N1601 16x64", 1601, 16, None),
                                 ("decoder N1600 8x128", 1600, 8, None),
                                 ("dinov2 N1664 n_valid 1601", 1664, 16, 1601)):
-        qkv = 0.5 * rn(2, n, 3 * 1024)
-        qkv[:, nv or n:] *= 5.0
+        qkv = attn_qkv(rn, 2, n, 1024, nv)
         q, k, v = qkv.view(2, n, 3, heads, 1024 // heads).permute(2, 0, 3, 1, 4)
         out.append(Case("fused_attention_packed", label,
                         lambda q=qkv, h=heads, v=nv: ops.fused_attention_packed(q, h, v),
@@ -289,7 +334,8 @@ def kernel_cases(gen, dt):
 
 def check_output(name, label, dt, k, p, what: str = "") -> float:
     """Hold one kernel output to its plain version with the tolerances
-    above; print the comparison and return the error."""
+    above (the bf16 attention kernels to ATTN_ULPS too); print the
+    comparison and return the error."""
     import torch
 
     torch.cuda.synchronize()
@@ -298,10 +344,25 @@ def check_output(name, label, dt, k, p, what: str = "") -> float:
     require(bool(torch.isfinite(k).all()), f"{name} {label}: non-finite kernel output")
     err, scale = (k - p).abs().max().item(), p.abs().max().item()
     tol = F32_REL * max(1.0, scale) if dt == torch.float32 else BF16_REL * scale + BF16_ABS
-    print(f"{name:24s} {label:30s} {str(dt)[6:]:8s} {what}max|k-p| {err:.3e} "
+    ulps = ""
+    if dt == torch.bfloat16 and name in ATTENTION_KERNELS:
+        tol = min(tol, ATTN_ULPS * bf16_ulp(scale))
+        ulps = f", {err / bf16_ulp(scale):.2f} ulp" if scale > 0 else ""
+    print(f"{name:24s} {label:30s} {str(dt)[6:]:8s} {what}max|k-p| {err:.3e}{ulps} "
           f"(tol {tol:.3e}, max|p| {scale:.3g})", flush=True)
     require(err <= tol, f"{name} {label} {dt} {what}: kernel disagrees with its plain version")
     return err
+
+
+def check_power(name, label, what, ref, wrong):
+    """The bf16 attention bar must be able to fail a kernel: the plain
+    version with the softmax scale off by 2% (``wrong``) must move by more
+    than ATTN_ULPS ulps of the largest reference value."""
+    moved = (wrong.float() - ref.float()).abs().max().item()
+    bar = ATTN_ULPS * bf16_ulp(ref.float().abs().max().item())
+    print(f"{name:24s} {label:30s} bf16     {what}softmax scale x1.02 moves the plain version "
+          f"{moved:.3e} ({moved / bar * ATTN_ULPS:.1f} ulp, bar {ATTN_ULPS})", flush=True)
+    require(moved > bar, f"{name} {label} {what}: the bar would pass a 2% softmax-scale error")
 
 
 def record(r, err, case: Case, dtype: str = "bf16"):
@@ -320,8 +381,11 @@ def record(r, err, case: Case, dtype: str = "bf16"):
         r["library_ms"] = (r["library_ms"] or 0.0) + lms
     r["max_abs_err"] = max(r["max_abs_err"], err)
     lib = f"  library {lms:.4f} ms" if lms is not None else ""
+    rate = ""
+    if case.name in ATTENTION_KERNELS:  # achieved rate at the bound's operations
+        rate = f"  {case.ops / ms / 1e9:.1f} TFLOP/s" + (f" (library {case.ops / lms / 1e9:.1f})" if lms else "")
     print(f"{r['name']:26s} {case.label:30s} {dtype:8s} kernel {ms:.4f} ms  plain {pms:.4f} ms{lib}  "
-          f"bound {max(bytes_ms, ops_ms):.4f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'})",
+          f"bound {max(bytes_ms, ops_ms):.4f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'}){rate}",
           flush=True)
     return ms, pms
 
@@ -360,8 +424,7 @@ def check_attention_kernels(results):
         es = torch.finfo(dt).bits // 8
         for label, b, n, h, d, nv in ATTN_SHAPES:
             c = h * d
-            qkv = 0.5 * rn(b, n, 3 * c)
-            qkv[:, nv or n:] *= 5.0  # padded-token content must be inert
+            qkv = attn_qkv(rn, b, n, c, nv)
             out, lse = _packed_forward(qkv, h, nv, with_lse=True)
             dout = rn(b, n, c)
             dqkv = torch.empty_like(qkv)
@@ -374,6 +437,11 @@ def check_attention_kernels(results):
             refs = plain()
             errs = [check_output("fused_attention_backward", label, dt, got, ref, f"{gname} ")
                     for gname, got, ref in zip(("dq", "dk", "dv"), grads, refs)]
+            if dt == torch.bfloat16:
+                wrongs = ops.attention_backward_reference((1.02 * q.float()).to(dt), k, v, _heads(dout, h), nv)
+                for gname, ref, wrong in zip(("dq", "dk", "dv"), refs, wrongs):
+                    check_power("fused_attention_backward", label, f"{gname} ", ref, wrong)
+                del wrongs
             del refs
             if dt == torch.bfloat16:
                 # the library's backward on contiguous leaves; its forward runs
@@ -388,20 +456,125 @@ def check_attention_kernels(results):
                             library=lambda: torch.autograd.grad(lout, leaves, dh, retain_graph=True)))
                 del leaves, lout, dh
 
-            qh, kh, vh = (0.5 * rn(b, h, n, d) for _ in range(3))
-            for t in (qh, kh, vh):
-                t[:, :, nv or n:] *= 5.0
+            qh, kh, vh = attn_heads(rn, b, h, n, d, nv)
             kern = lambda: ops.fused_attention(qh, kh, vh, nv)
             plain = lambda: ops.sdpa_reference(qh, kh, vh, nv)
             rows = nv or n
-            err = check_output("fused_attention", label, dt, kern()[:, :, :rows], plain()[:, :, :rows])
+            ref = plain()[:, :, :rows]
+            err = check_output("fused_attention", label, dt, kern()[:, :, :rows], ref)
             if dt == torch.bfloat16:
+                check_power("fused_attention", label, "", ref,
+                            ops.sdpa_reference((1.02 * qh.float()).to(dt), kh, vh, nv)[:, :, :rows])
                 record(results["fused_attention"], err,
                        Case("fused_attention", label, kern, plain, bytes=4 * b * n * c * es,
                             ops=4 * b * n * (nv or n) * c, peak=PEAK_BF16_TENSOR,
                             library=sdpa_library(qh, kh, vh, nv)))
-            del qkv, out, lse, dout, dqkv
+            del qkv, out, lse, dout, dqkv, ref
             torch.cuda.empty_cache()
+
+
+# bf16 attention at its edges, (B, H, N, D, n_valid): one key and one query;
+# one partial tile; a ragged N at D = 128 with n_valid short of it; a second
+# key tile holding one valid key
+RAGGED = ((1, 1, 1, 64, 1), (1, 2, 17, 64, 17), (2, 3, 65, 128, 63), (1, 2, 130, 64, 129))
+
+
+def check_tc_build(log: str):
+    """Registers and spills of the bf16 tensor-core attention kernels from
+    the build's -Xptxas -v report; a spill fails."""
+    import re
+
+    props, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )(\w+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            props.setdefault(cur, {})["spills"] = (int(m[1]), int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            props.setdefault(cur, {})["regs"] = int(m[1])
+    tc = {}
+    for name, p in props.items():
+        m = re.search(r"(attn_\w+?_tc_kernel)ILi(\d+)E", name)
+        if m:
+            tc[f"{m[1]}<D={m[2]}>"] = p
+    require(len(tc) == 6, f"ptxas: expected 6 bf16 attention kernels, found {sorted(tc)}")
+    for name, p in sorted(tc.items()):
+        print(f"ptxas {name:32s} {p.get('regs')} registers, spill stores / loads {p.get('spills')} bytes",
+              flush=True)
+    spilled = [name for name, p in tc.items() if p.get("spills") != (0, 0)]
+    require(not spilled, f"ptxas: registers spill in {spilled}")
+
+
+def check_attention_edges():
+    """Kernels A and E in bf16 at RAGGED shapes (per-head) and on a packed
+    view against their plain versions, every row compared; E twice at the
+    full-width decoder shape, bitwise; misaligned bf16 views refused."""
+    import torch
+
+    from roma_tpu_torch import ops
+    from roma_tpu_torch.ops.fused_attention import _head_forward, _heads, _packed_forward, _qkv_heads
+
+    dt = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dt)
+
+    def backward(label, views, out, lse, dout, grads, nv):
+        ops.fused_attention_backward(*views, out, lse, dout, *grads, n_valid=nv)
+        refs = ops.attention_backward_reference(*views, dout, nv)
+        for gname, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+            check_output("fused_attention_backward", label, dt, got, ref, f"{gname} ")
+
+    for b, h, n, d, nv in RAGGED:
+        label = f"ragged {b}x{h}x{n}x{d} nv{nv}"
+        q, k, v = attn_heads(rn, b, h, n, d, nv)
+        out, lse = _head_forward(q, k, v, nv, with_lse=True)
+        check_output("fused_attention", label, dt, out, ops.sdpa_reference(q, k, v, nv))
+        backward(label, (q, k, v), out, lse, rn(b, h, n, d), [torch.empty_like(q) for _ in range(3)], nv)
+
+    label, n, heads, nv = "ragged packed 1x130 2x64 nv129", 130, 2, 129
+    qkv = attn_qkv(rn, 1, n, 128, nv)
+    out, lse = _packed_forward(qkv, heads, nv, with_lse=True)
+    check_output("fused_attention_packed", label, dt, out, ops.attention_packed_reference(qkv, heads, nv))
+    dqkv = torch.empty_like(qkv)
+    backward(label, _qkv_heads(qkv, heads), _heads(out, heads), lse, _heads(rn(1, n, 128), heads),
+             _qkv_heads(dqkv, heads), nv)
+
+    # no atomics: two runs at the decoder's full width give the same bits
+    qkv = attn_qkv(rn, 4, 1600, 1024)
+    out, lse = _packed_forward(qkv, 8, None, with_lse=True)
+    dout = rn(4, 1600, 1024)
+    runs = []
+    for _ in range(2):
+        dqkv = torch.empty_like(qkv)
+        ops.fused_attention_backward(*_qkv_heads(qkv, 8), _heads(out, 8), lse, _heads(dout, 8),
+                                     *_qkv_heads(dqkv, 8))
+        runs.append(dqkv.view(torch.int16))
+    torch.cuda.synchronize()
+    require(torch.equal(runs[0], runs[1]), "fused_attention_backward: two runs differ")
+    print(f"{'fused_attention_backward':24s} {'decoder N1600 8x128, twice':30s} bf16     bitwise equal", flush=True)
+    del qkv, out, lse, dout, runs, dqkv
+
+    # a bf16 view whose base is one element off 16 bytes is refused before
+    # any launch, in each entry
+    flat = torch.zeros(64 * 3 * 128 + 1, dtype=dt, device="cuda")
+    off, packed = flat[1:2 * 64 * 64 + 1].view(1, 2, 64, 64), flat[1:].view(1, 64, 3 * 128)
+    fine = torch.zeros(1, 2, 64, 64, dtype=dt, device="cuda")
+    lse = torch.zeros(1, 2, 64, device="cuda")
+    for what, call in (("fused_attention, q base + 2 bytes", lambda: ops.fused_attention(off, off, off)),
+                       ("fused_attention_packed, qkv base + 2 bytes", lambda: ops.fused_attention_packed(packed, 2)),
+                       ("fused_attention_backward, dq base + 2 bytes",
+                        lambda: ops.fused_attention_backward(fine, fine, fine, fine, lse, fine, off,
+                                                             torch.empty_like(fine), torch.empty_like(fine)))):
+        try:
+            call()
+        except ValueError as e:
+            print(f"misaligned bf16 view refused: {what}: {e}", flush=True)
+        else:
+            raise SmokeFailure(f"misaligned bf16 view accepted: {what}")
 
 
 def peaked_bias(b, h, w, res, amp=14.0):
@@ -513,6 +686,46 @@ def synthetic_train_batch(b: int, hw: int, seed: int, device):
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
+# the port's CUDA kernels by their __global__ function's name, for --profile
+PORT_KERNEL_NAMES = (("attn_fwd", "A"), ("attn_bwd", "E"), ("local_corr", "B"), ("warp_sample", "C"),
+                     ("refiner_block", "D"), ("refiner_chain", "H"), ("window_warp", "G"),
+                     ("compact_miss", "F"), ("wide_block", "I/J"), ("onehot_dot", "K"), ("window_sum", "L"))
+
+
+def traced(what: str, fn, top: int = 12):
+    """One call of ``fn`` under torch.profiler, ending in a synchronize.
+    Prints its wall time, its device time (the CUDA kernels' self times;
+    user-annotation ranges left out, as they would count their kernels
+    twice; one stream, so no overlap), the idle share 1 - device / wall (an
+    upper bound: the profiler's host cost lengthens the wall), the top
+    kernels and the port's kernels by letter."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    dev_us = lambda e: float(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    dev_ms = sum(map(dev_us, kernels)) / 1e3
+    require(dev_ms > 0, f"{what}: the trace shows no device time")
+    print(f"profile {what}: wall {wall_ms:.3f} ms, device time {dev_ms:.3f} ms, "
+          f"idle share {1 - dev_ms / wall_ms:.3f}", flush=True)
+    for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
+        print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:5d} calls  {e.key[:110]}")
+    by_letter = defaultdict(float)
+    for e in kernels:
+        letter = next((lt for sub, lt in PORT_KERNEL_NAMES if sub in e.key), None)
+        if letter:
+            by_letter[letter] += dev_us(e) / 1e3
+    print(f"profile {what}: port kernels " + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(by_letter.items())),
+          flush=True)
+
+
 def zero_counts():
     from roma_tpu_torch.ops import KERNEL_WRAPPERS
 
@@ -596,10 +809,11 @@ def check_small_train():
     require(all(v <= 1e-3 for v in worst.values()), "small-config train step disagrees")
 
 
-def train_full_width(results, steps: int = 5, batch_size: int = 4, hw: int = 560):
+def train_full_width(results, steps: int = 5, batch_size: int = 4, hw: int = 560, profile: bool = False):
     """The recipe's training at released widths: RoMaConfig() on seeded
     random weights, DINOv2 frozen, bf16 autocast over float32 parameters,
-    560^2 non-symmetric, RobustLosses, the batch-scaled AdamW recipe."""
+    560^2 non-symmetric, RobustLosses, the batch-scaled AdamW recipe. With
+    ``profile``, one more step on the last batch, traced."""
     import torch
 
     from roma_tpu_torch.models import train_net
@@ -662,6 +876,8 @@ def train_full_width(results, steps: int = 5, batch_size: int = 4, hw: int = 560
             f"Kernel A launched {counts['fused_attention_packed']} times")
     require(all(counts[k] == 0 for k in FORWARD_ONLY), f"forward-only kernels launched in training: {counts}")
     results["fused_attention_backward"]["launches"] = counts["fused_attention_backward"]
+    if profile:
+        traced("train step", lambda: step(batches[-1])["loss"].item())
 
 
 def run_sdpa_path(results):
@@ -1016,7 +1232,11 @@ def run_graveyard_path(results):
             and all(counts[k] >= 1 for k in GRAVEYARD_KERNELS), f"graveyard path launches {counts}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="trace one more match request and training step with torch.profiler")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -1038,10 +1258,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    _ext.build(verbose=True)  # prints ptxas registers / spills per kernel
     _ext.lib()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"({_ext.library_path().relative_to(HERE)})", flush=True)
+    ptxas = _ext.ptxas_log()  # registers and spills per kernel, kept beside the library
+    print(ptxas, flush=True)
+    check_tc_build(ptxas)
 
     results = {
         name: {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": 0,
@@ -1051,6 +1273,7 @@ def main() -> int:
     }
     check_kernels(results)
     check_attention_kernels(results)
+    check_attention_edges()
     check_window_kernels(results)
     check_wide_kernels(results)
     check_onehot_kernels(results)
@@ -1066,12 +1289,17 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(0)
     latencies = []
+
+    def request(im_a, im_b):
+        warp, cert = model.match(im_a, im_b)
+        matches, _ = model.sample(warp, cert, num=5000, generator=gen)
+        kpts = model.to_pixel_coordinates(matches, im_a.height, im_a.width, im_b.height, im_b.width)
+        return warp, cert, matches, kpts
+
     zero_counts()
     for im_a, im_b in pairs:
         t0 = time.perf_counter()
-        warp, cert = model.match(im_a, im_b)
-        matches, mcert = model.sample(warp, cert, num=5000, generator=gen)
-        kpts_a, kpts_b = model.to_pixel_coordinates(matches, im_a.height, im_a.width, im_b.height, im_b.width)
+        warp, cert, matches, (kpts_a, kpts_b) = request(im_a, im_b)
         torch.cuda.synchronize()
         latencies.append(time.perf_counter() - t0)
         require(tuple(warp.shape) == (864, 1728, 4), f"warp shape {tuple(warp.shape)}")
@@ -1091,18 +1319,20 @@ def main() -> int:
     print(f"certainty mean {cert.mean().item():.4f}, warp range [{warp.min().item():.3f}, {warp.max().item():.3f}]")
     missing = [n for n in MATCH_KERNELS if launches[n] == 0]
     require(not missing, f"kernels not launched on the main path: {missing}")
+    if args.profile:
+        traced("match request", lambda: request(*pairs[-1]))
     del model, warp, cert, matches
     torch.cuda.empty_cache()
 
     check_small_train()
-    train_full_width(results)
+    train_full_width(results, profile=args.profile)
     torch.cuda.empty_cache()
     run_sdpa_path(results)
     torch.cuda.empty_cache()
     run_window_path(results)
     torch.cuda.empty_cache()
     run_graveyard_path(results)
-    missing =[n for n, r in results.items() if r["launches"] == 0]
+    missing = [n for n, r in results.items() if r["launches"] == 0]
     require(not missing, f"kernels never launched: {missing}")
     for r in results.values():
         r["bound_by"] = "bytes" if r.pop("_bytes_ms") >= r.pop("_ops_ms") else "operations"

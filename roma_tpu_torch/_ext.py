@@ -29,6 +29,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
 ]
+# per source: ptxas reports each kernel's registers and spills
+COMPILE_FLAGS = ["-Xptxas", "-v"]
 
 P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # entry point -> argument types (all return int = cudaError_t); the six L of
@@ -69,7 +71,7 @@ def library_path() -> Path:
     for f in cu + cuh:
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + COMPILE_FLAGS).encode())
     return BUILD_DIR / f"libroma_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -82,9 +84,16 @@ def _run(cmd):
     return res.stdout + res.stderr
 
 
-def build(verbose: bool = False) -> Path:
+def ptxas_path(library: Path) -> Path:
+    """Where a build keeps the compiler's ``-Xptxas -v`` report of the
+    library's kernels (registers, spill stores and loads)."""
+    return library.with_suffix(".ptxas.txt")
+
+
+def build() -> Path:
     """Compile every ``csrc/*.cu`` (one nvcc per file, in parallel) and link
-    them into the hashed shared library; a no-op when it already exists."""
+    them into the hashed shared library, with the ptxas report beside it
+    (:func:`ptxas_path`); a no-op when the library already exists."""
     out = library_path()
     if out.exists():
         return out
@@ -93,21 +102,27 @@ def build(verbose: bool = False) -> Path:
     cu, _ = _sources()
     tmp = BUILD_DIR / f"tmp_{os.getpid()}"
     tmp.mkdir(exist_ok=True)
-    extra = ["-Xptxas", "-v"] if verbose else []
     objs = [tmp / (f.stem + ".o") for f in cu]
     with ThreadPoolExecutor(max_workers=len(cu)) as pool:
         logs = list(pool.map(
-            lambda fo: _run([nvcc, *NVCC_FLAGS, *extra, "-I", str(_CSRC), "-c",
+            lambda fo: _run([nvcc, *NVCC_FLAGS, *COMPILE_FLAGS, "-I", str(_CSRC), "-c",
                              str(fo[0]), "-o", str(fo[1])]),
             zip(cu, objs),
         ))
     so_tmp = tmp / out.name
     _run([nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(so_tmp)])
+    # the report lands first: a library on disk always has its report
+    (tmp / "ptxas.txt").write_text("".join(logs))
+    os.replace(tmp / "ptxas.txt", ptxas_path(out))
     os.replace(so_tmp, out)
     shutil.rmtree(tmp, ignore_errors=True)
-    if verbose:
-        print("".join(logs))
     return out
+
+
+def ptxas_log() -> str:
+    """The ``-Xptxas -v`` report of the current library's kernels, built
+    first when needed."""
+    return ptxas_path(build()).read_text()
 
 
 def lib() -> ctypes.CDLL:

@@ -19,7 +19,11 @@ Hopper block's shared memory, so E streams key tiles and takes the row
 statistics from the forward instead of recomputing them in a pass of its own.
 
 On the H100 both kernels are bound by arithmetic; their design notes are in
-the sources. A CPU tensor takes the plain versions
+the sources. In bf16 both run on the tensor cores (mma.sync, tiles staged by
+16-byte cp.async copies), which needs every view's base 16-byte aligned and
+its batch, head and row strides multiples of 8 elements
+(:func:`check_bf16_views`, called before each bf16 launch); in float32 they
+run on the CUDA cores and take any strides. A CPU tensor takes the plain versions
 (:func:`attention_packed_reference`, ``sdpa_reference`` and
 :func:`attention_backward_reference`); a CUDA tensor launches the kernels or
 raises.
@@ -64,7 +68,11 @@ def attention_packed_reference(qkv: torch.Tensor, num_heads: int, n_valid: int |
 def attention_backward_reference(q, k, v, dout, n_valid: int | None = None):
     """Plain PyTorch version of the backward, in float32: an explicit
     recompute of the probabilities and ``ds = p o (dp - rowsum(dp o p))``.
-    q, k, v, dout (B, H, N, D) -> (dq, dk, dv) in the inputs' dtypes."""
+    ``p`` and ``ds`` are rounded to the inputs' dtype before the second
+    products (``p^T dout``, ``ds k``, ``ds^T q``), where Kernel E rounds them
+    and as :func:`sdpa_reference` rounds ``p`` for ``p v``; in float32 that is
+    no rounding. q, k, v, dout (B, H, N, D) -> (dq, dk, dv) in the inputs'
+    dtypes."""
     n, d = q.shape[-2:]
     scale = 1.0 / math.sqrt(d)
     qf, kf, vf, gf = (t.float() for t in (q, k, v, dout))
@@ -72,9 +80,10 @@ def attention_backward_reference(q, k, v, dout, n_valid: int | None = None):
     if n_valid is not None and n_valid < n:
         logits[..., n_valid:] = float("-inf")
     p = torch.softmax(logits, dim=-1)
-    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dv = torch.matmul(p.to(q.dtype).float().transpose(-1, -2), gf)
     dp = torch.matmul(gf, vf.transpose(-1, -2))
     ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds = ds.to(q.dtype).float()
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -90,9 +99,23 @@ def _check_views(what: str, *views: torch.Tensor):
         raise ValueError(f"{what}: head dim must be 64 or 128, got {shape[-1]}")
 
 
+def check_bf16_views(what: str, *views: torch.Tensor):
+    """The bf16 kernels' layout contract: each 16-byte cp.async copy moves 8
+    elements of a row, so every view's base address must be a multiple of 16
+    bytes and its batch, head and row strides multiples of 8 elements.
+    Raises ``ValueError`` otherwise; the kernels have no other path."""
+    for t in views:
+        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1]):
+            raise ValueError(f"{what}: bf16 views need a 16-byte aligned base and strides that are "
+                             f"multiples of 8 elements, got address {t.data_ptr()} % 16 = "
+                             f"{t.data_ptr() % 16}, strides {t.stride()}")
+
+
 def _launch_forward(what, q, k, v, out, lse, n_valid):
     """Kernel A on (B, H, N, D) views; q, k, v share strides."""
     _check_views(what, q, k, v, out)
+    if q.dtype == torch.bfloat16:
+        check_bf16_views(what, q, k, v, out)
     b, h, n, d = q.shape
     if k.stride() != q.stride() or v.stride() != q.stride():
         raise ValueError(f"{what}: q, k and v must share strides")
@@ -150,6 +173,8 @@ def fused_attention_backward(q, k, v, out, lse, dout, dq, dk, dv, n_valid: int |
     b, h, n, d = q.shape
     if any(t.stride() != q.stride() for t in (k, v, dq, dk, dv)) or dout.stride() != out.stride():
         raise ValueError(f"{what}: q, k, v, dq, dk, dv must share strides, and out, dout")
+    if q.dtype == torch.bfloat16:
+        check_bf16_views(what, q, k, v, out, dout, dq, dk, dv)
     _ext.require_cuda(what, lse)
     if lse.shape != (b, h, n) or lse.dtype != torch.float32:
         raise ValueError(f"{what}: lse must be float32 {(b, h, n)}, got {lse.dtype} {tuple(lse.shape)}")

@@ -2,7 +2,9 @@
 checked against on the card) against jax.vjp of the JAX package's Pallas
 attention, whose backward is _attn_bwd_kernel, in interpret mode: the packed
 entry and the per-head entry, head dims 64 and 128, with and without the
-n_valid key mask."""
+n_valid key mask; and in bf16, the port's plain backward (which rounds P and
+dS to bf16 for the second products, where Kernel E rounds them) against the
+Pallas backward, whose products run in float32 from the same bf16 inputs."""
 import numpy as np
 import pytest
 import torch
@@ -71,4 +73,36 @@ def test_per_head_attention_grad_matches_pallas_interpret(d, nv):
     sdpa(*ts2, nv).backward(torch.from_numpy(g))
     for t, t2 in zip(ts, ts2):
         np.testing.assert_allclose(t.grad.numpy(), t2.grad.numpy(), atol=1e-5)
+    assert all(f.launches == 0 for f in KERNEL_WRAPPERS)
+
+
+# bf16: the port rounds P and dS to bf16 before p^T dout, ds k and ds^T q (as
+# Kernel E does on the tensor cores); the Pallas backward keeps them float32.
+# Measured on the CPU at these inputs: the gradients differ by at most
+# 6.5e-3 of each gradient's largest entry (dq, dk; dv 6.3e-3), against
+# 4e-4..4e-3 when the port's backward does not round (a bf16 ulp is 2^-8 of
+# a value's leading power of two, so this is about one ulp of the largest
+# entry). The bar: 1e-2 of each gradient's largest entry.
+BF16_GRAD_TOL = 1e-2
+
+
+@pytest.mark.parametrize("d,nv", CASES)
+def test_packed_attention_grad_bf16_matches_pallas_interpret(d, nv):
+    b, n, c = 2, 256, 256
+    heads = c // d
+    qkv, g = _inputs((b, n, 3 * c), nv, 1, seed=d)
+    qkv_b, g_b = jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(g, jnp.bfloat16)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda x: jax_packed(x, heads, n_valid=nv), qkv_b)
+        (ref,) = vjp(g_b)
+    ref = np.asarray(ref.astype(jnp.float32))
+    to_torch = lambda a: torch.from_numpy(np.array(a.astype(jnp.float32))).to(torch.bfloat16)
+    x = to_torch(qkv_b).requires_grad_(True)
+    fused_attention_packed(x, heads, nv).backward(to_torch(g_b))
+    assert x.grad.dtype == torch.bfloat16
+    got = x.grad.float().numpy()
+    for i, name in enumerate(("dq", "dk", "dv")):
+        r, gg = ref[..., i * c:(i + 1) * c], got[..., i * c:(i + 1) * c]
+        err = np.abs(gg - r).max() / np.abs(r).max()
+        assert err <= BF16_GRAD_TOL, f"{name}: {err:.3e} of its largest entry"
     assert all(f.launches == 0 for f in KERNEL_WRAPPERS)
