@@ -7,9 +7,13 @@
    sm_90a, one nvcc per source in parallel) and prints the build time.
 2. Checks each kernel against its plain PyTorch version at the shapes the
    560 -> 864 match and the 560^2 training step give it, in bfloat16 and in
-   float32, and times both with CUDA events (median of 20 calls).
+   float32, and times both with CUDA events (median of 20 calls: the call
+   time, the wrapper's host work included). The kernel and its library call
+   also get a device time: calls captured in a CUDA graph and replayed
+   between one pair of events (device_ms; see device_ms()).
 3. Checks the whole match on a small configuration: the kernel path on the
-   card against the plain path on the CPU, same weights, float32.
+   card against the plain path on the CPU, same weights, float32; once with
+   the defaults and once non-symmetric and coarse-only.
 4. Builds roma_outdoor at the released widths on seeded random weights
    (bf16 amp, 560 -> 864, symmetric), answers 3 match requests on seeded
    synthetic image pairs, samples 5000 matches from each, and checks shapes,
@@ -30,10 +34,15 @@
 8. Right after 2, checks the windowed samplers and the packed refiner
    stack at their design shapes (B = 2, bf16 and f32): Kernel F (compact_miss) exactly
    against its plain version; Kernel G's two entries against their plain
-   tile computation, and windowed_warp / windowed_grid_sample as a whole
+   tile computation, bit for bit, and windowed_warp / windowed_grid_sample as a whole
    against warp_sample_reference, asserting which branch each case took;
-   Kernel H against refiner_stack_reference and Kernel D. After 7, drives
-   those entries once as a caller does and counts F, G and H's launches.
+   Kernel H against refiner_stack_reference and Kernel D; times G's
+   wrapper part by part on the host (wrapper_host_parts). Then holds G at
+   its edges: a v1 partial tile (560^2), fixups at a tile's first and last
+   query and on both sides of a block boundary, and widths other than 9
+   (the instantiated 4 and 5, and 3 through the looped kernel). After 7,
+   drives those entries once as a caller does and counts F, G and H's
+   launches.
 9. Right after 8, checks Kernels I and J (the wide-C refiner blocks)
    against wide_refiner_stack_reference at the seven shapes the 560 -> 864
    match gives the wide-C stacks (B = 2, 9 blocks folded from refiner_block
@@ -48,7 +57,8 @@
    least time the card could take for the same work, from the bytes each
    input and output moves once and the operations over the peaks below;
    library_ms is one PyTorch call that computes the same function, where
-   there is one), the card's name and power limit, and as the last line
+   there is one; device_ms and library_device_ms are their device times,
+   device_by the method), the card's name and power limit, and as the last line
    {"ok": true, "device": {...}}.
 
 With ``--profile``, 4 and 6 each trace one more request (the last pair
@@ -156,6 +166,7 @@ class Case:
     peak: float = PEAK_F32
     f32_ops: float = 0.0
     library: Callable | None = None
+    library_graph: bool = True  # False: the library call cannot be captured (device_ms)
 
     def ops_ms(self) -> float:
         """The least time of the operations: tensor cores and CUDA cores run
@@ -188,6 +199,61 @@ def cuda_ms(fn, reps: int = 20) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(fn, call_ms: float, graph: bool = True, reps: int = 20) -> tuple[float, str]:
+    """Device time of one call of ``fn``, without the host work around its
+    launches: enough calls for ~2 ms (``call_ms`` is its call time)
+    captured in one CUDA graph, the graph replayed ``reps`` times between
+    pairs of events, the median over the calls in it ("graph"). A call that
+    cannot be captured (``graph=False``: an autograd backward of a forward
+    made outside the capture) is timed by torch.profiler instead: its
+    kernels' summed device time over ``reps`` calls ("profiler")."""
+    import torch
+
+    if not graph:
+        return profiled_ms(fn, reps), "profiler"
+    inner = max(1, min(20, round(2.0 / max(call_ms, 1e-3))))
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(inner):
+            fn()
+    g.replay()
+    times = []
+    for _ in range(reps if call_ms < 5 else max(3, reps // 4)):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    del g
+    times.sort()
+    return times[len(times) // 2], "graph"
+
+
+def profiled_ms(fn, reps: int) -> float:
+    """The device time of ``reps`` calls of ``fn`` under torch.profiler (the
+    CUDA kernels' and copies' self times), over ``reps``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    total_us = sum(map(self_device_us, events))
+    require(total_us > 0, "profiled_ms: the trace shows no device time")
+    return total_us / 1e3 / reps
+
+
+def self_device_us(e) -> float:
+    return float(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0))
 
 
 def smooth_flow(gen, b, h, w, off_band=True, scale=0.1):
@@ -366,27 +432,33 @@ def check_power(name, label, what, ref, wrong):
 
 
 def record(r, err, case: Case, dtype: str = "bf16"):
-    """Add a case's CUDA-event medians (kernel, plain version, library call),
-    its bound and its error to a kernel's row; the timed cases are the bf16
+    """Add a case's CUDA-event medians (kernel, plain version, library call:
+    call times), the kernel's and the library call's device times, its
+    bound and its error to a kernel's row; the timed cases are the bf16
     ones (Kernel F's: bool flags in, int32 slots out)."""
     ms, pms = cuda_ms(case.kern), cuda_ms(case.plain)
+    dms, how = device_ms(case.kern, ms)
     lms = cuda_ms(case.library) if case.library else None
+    ldms, lhow = device_ms(case.library, lms, case.library_graph) if case.library else (None, None)
     bytes_ms, ops_ms = 1e3 * case.bytes / HBM_BYTES_PER_S, case.ops_ms()
     r["ms"] += ms
+    r["device_ms"] += dms
     r["plain_ms"] += pms
     r["bound_ms"] += max(bytes_ms, ops_ms)
     r["_bytes_ms"] += bytes_ms
     r["_ops_ms"] += ops_ms
+    r["_methods"] |= {how, lhow} - {None}
     if lms is not None:
         r["library_ms"] = (r["library_ms"] or 0.0) + lms
+        r["library_device_ms"] = (r["library_device_ms"] or 0.0) + ldms
     r["max_abs_err"] = max(r["max_abs_err"], err)
-    lib = f"  library {lms:.4f} ms" if lms is not None else ""
+    lib = f"  library {lms:.4f} ms (device {ldms:.4f}, {lhow})" if lms is not None else ""
     rate = ""
     if case.name in ATTENTION_KERNELS:  # achieved rate at the bound's operations
-        rate = f"  {case.ops / ms / 1e9:.1f} TFLOP/s" + (f" (library {case.ops / lms / 1e9:.1f})" if lms else "")
-    print(f"{r['name']:26s} {case.label:30s} {dtype:8s} kernel {ms:.4f} ms  plain {pms:.4f} ms{lib}  "
-          f"bound {max(bytes_ms, ops_ms):.4f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'}){rate}",
-          flush=True)
+        rate = f"  {case.ops / dms / 1e9:.1f} TFLOP/s" + (f" (library {case.ops / ldms / 1e9:.1f})" if ldms else "")
+    print(f"{r['name']:26s} {case.label:30s} {dtype:8s} kernel {ms:.4f} ms (device {dms:.4f}, {how}; host "
+          f"{ms - dms:.4f})  plain {pms:.4f} ms{lib}  bound {max(bytes_ms, ops_ms):.4f} ms "
+          f"({'bytes' if bytes_ms >= ops_ms else 'operations'}){rate}", flush=True)
     return ms, pms
 
 
@@ -452,7 +524,7 @@ def check_attention_kernels(results):
                 record(results["fused_attention_backward"], max(errs),
                        Case("fused_attention_backward", label, kern, plain,
                             bytes=8 * b * n * c * es + 4 * b * h * n, ops=10 * b * n * (nv or n) * c,
-                            peak=PEAK_BF16_TENSOR,
+                            peak=PEAK_BF16_TENSOR, library_graph=False,
                             library=lambda: torch.autograd.grad(lout, leaves, dh, retain_graph=True)))
                 del leaves, lout, dh
 
@@ -612,29 +684,35 @@ def small_config():
 
 def check_small_match():
     """The whole match on a small configuration: kernels on the card against
-    the plain versions on the CPU, one set of weights, float32."""
+    the plain versions on the CPU, one set of weights, float32; with the
+    defaults (symmetric, two passes) and non-symmetric and coarse-only."""
     import copy
 
     import numpy as np
-    import torch
 
     from roma_tpu_torch.models import RegressionMatcher
     from roma_tpu_torch.models.zoo import build_net, init_random
 
     cfg = small_config()
     net = init_random(build_net(cfg, "cpu"), seed=1, std=0.1).eval()
+    gpu_net = copy.deepcopy(net).to("cuda")
     rs = np.random.RandomState(2)
     a, b = (rs.randn(112, 112, 3).astype(np.float32) for _ in range(2))
-    bias = peaked_bias(2, 8, 8, cfg.cls_res)
-    outs = []
-    for dev, n in (("cpu", net), ("cuda", copy.deepcopy(net).to("cuda"))):
-        m = RegressionMatcher(n, h=112, w=112, upsample_res=(128, 128))
-        w, c = m.match(a, b, gm_logit_bias=bias)
-        outs.append((w.cpu(), c.cpu()))
-    (wc, cc), (wg, cg) = outs
-    ew, ec = (wg - wc).abs().max().item(), (cg - cc).abs().max().item()
-    print(f"small match 112->128 f32: cuda kernels vs cpu plain: warp {ew:.3e} certainty {ec:.3e}", flush=True)
-    require(wg.shape == (128, 256, 4) and ew <= 1e-3 and ec <= 1e-3, "small-config match disagrees")
+    for label, modes, shape in (("symmetric, 112 -> 128", {}, (128, 256, 4)),
+                                ("non-symmetric, coarse-only 112", dict(symmetric=False, upsample_preds=False),
+                                 (112, 112, 4))):
+        bias = peaked_bias(2 if modes.get("symmetric", True) else 1, 8, 8, cfg.cls_res)
+        outs = []
+        for n in (net, gpu_net):
+            m = RegressionMatcher(n, h=112, w=112, upsample_res=(128, 128), **modes)
+            w, c = m.match(a, b, gm_logit_bias=bias)
+            outs.append((w.cpu(), c.cpu()))
+        (wc, cc), (wg, cg) = outs
+        ew, ec = (wg - wc).abs().max().item(), (cg - cc).abs().max().item()
+        print(f"small match {label} f32: cuda kernels vs cpu plain: warp {ew:.3e} certainty {ec:.3e}",
+              flush=True)
+        require(tuple(wg.shape) == shape and tuple(cg.shape) == shape[:-1] and ew <= 1e-3 and ec <= 1e-3,
+                f"small-config match ({label}) disagrees")
 
 
 def texture(rs, h, w):
@@ -702,7 +780,7 @@ def traced(what: str, fn, top: int = 12):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    dev_us = lambda e: float(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0))
+    dev_us = self_device_us
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -724,6 +802,17 @@ def traced(what: str, fn, top: int = 12):
             by_letter[letter] += dev_us(e) / 1e3
     print(f"profile {what}: port kernels " + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(by_letter.items())),
           flush=True)
+
+
+def new_results() -> dict:
+    """Each kernel's row of the kernels line, before any case is recorded."""
+    return {
+        name: {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": 0,
+               "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": None,
+               "library_ms": None, "device_ms": 0.0, "library_device_ms": None, "device_by": None,
+               "_bytes_ms": 0.0, "_ops_ms": 0.0, "_methods": set()}
+        for name, (src, rep) in KERNEL_INFO.items()
+    }
 
 
 def zero_counts():
@@ -940,6 +1029,71 @@ def tile_cost(args):
     return nbytes, x.shape[-1] * (8 * n_ok + int((fpos < yl.shape[1]).sum()))
 
 
+def check_bits(name, label, dt, k, p, what: str = "") -> float:
+    """check_output, and the same bits: Kernel G computes its plain
+    version's products and sums in the same order, uncontracted."""
+    err = check_output(name, label, dt, k, p, what)
+    require(err == 0.0, f"{name} {label} {dt} {what}: not bitwise equal to its plain version")
+    return err
+
+
+def whole(name, label, dt, fn, x, flow, branches, took):
+    """A windowed function as a whole against warp_sample_reference, and the
+    set of branches it took."""
+    from roma_tpu_torch import ops
+
+    before = dict(branches)
+    got = fn(x, flow)
+    check_output(name, label, dt, got, ops.warp_sample_reference(x, flow), "whole function ")
+    moved = {k: v - before[k] for k, v in branches.items() if v != before[k]}
+    require(set(moved) == took, f"{name} {label}: branches {moved}, expected {took}")
+    return got
+
+
+def host_us(fn, n: int = 300) -> float:
+    """Median host time, in us, of one call of ``fn`` started on an empty
+    launch queue (a synchronize before each call, outside the clock)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    times.sort()
+    return 1e6 * times[len(times) // 2]
+
+
+def wrapper_host_parts(args, library):
+    """Kernel G's wrapper part by part at the shape of ``args``: the host
+    time of the whole call and of each step it takes, beside the library
+    call's and the stream accessor the wrapper does not use."""
+    import torch
+
+    from roma_tpu_torch import _ext, ops
+    from roma_tpu_torch.ops import tile_window as tw
+
+    x, yl, fpos = args[0], args[1], args[7]
+    out = ops.warp_tiles(*args)
+    ptrs = [a.data_ptr() for a in (*args[:9], out)]
+    entry = _ext.lib().roma_window_warp
+    dims = (yl.shape[0], yl.shape[0] // x.shape[0], *x.shape[1:], yl.shape[1], fpos.shape[1], *args[9:],
+            _ext.dtype_code(x, "warp_tiles"))
+    parts = (("warp_tiles, the whole call", lambda: ops.warp_tiles(*args)),
+             ("tile_checks", lambda: tw.tile_checks("warp_tiles", *args[:9])),
+             ("torch.empty", lambda: torch.empty_like(out)),
+             ("ten data_ptr", lambda: [a.data_ptr() for a in (*args[:9], out)]),
+             ("_ext.stream()", _ext.stream),
+             ("the ctypes launch", lambda: entry(*ptrs, *dims, _ext.stream())),
+             ("torch.cuda.current_stream().cuda_stream", lambda: torch.cuda.current_stream().cuda_stream),
+             ("F.grid_sample, the whole call", library))
+    print("host time a call, median of 300 on an empty launch queue: "
+          + ", ".join(f"{name} {host_us(fn):.2f} us" for name, fn in parts), flush=True)
+
+
 def check_window_kernels(results):
     """Kernels F, G and H against their plain versions at the JAX design
     shapes (B = 2), and windowed_warp / windowed_grid_sample as a whole
@@ -966,15 +1120,6 @@ def check_window_kernels(results):
                   flush=True)
             record(results["compact_miss"], 0.0, case, "bool")
 
-    def whole(name, label, dt, fn, x, flow, branches, took):
-        """The whole function against warp_sample_reference, and its branch."""
-        before = dict(branches)
-        got = fn(x, flow)
-        check_output(name, label, dt, got, ops.warp_sample_reference(x, flow), "whole function ")
-        moved = {k: v - before[k] for k, v in branches.items() if v != before[k]}
-        require(set(moved) == took, f"{name} {label}: branches {moved}, expected {took}")
-        return got
-
     spec, spec1 = tw.WarpSpec(), v1.WindowSpec()
     for dt in (torch.float32, torch.bfloat16):
         rn = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dt)
@@ -988,7 +1133,7 @@ def check_window_kernels(results):
             case = Case("warp_tiles", label, lambda a=args: ops.warp_tiles(*a),
                         lambda a=args: ops.warp_tiles_reference(*a), bytes=nbytes, ops=nops,
                         library=grid_sample_library(x, flow))
-            err = check_output("warp_tiles", label, dt, case.kern(), case.plain())
+            err = check_bits("warp_tiles", label, dt, case.kern(), case.plain())
             counts = plan["counts"].reshape(-1)
             print(f"{'':26s} {label:30s} tiles {counts.numel()}, needs-fix per tile max {int(counts.max())}, "
                   f"over budget {int((counts > spec.kf).sum())}", flush=True)
@@ -996,6 +1141,8 @@ def check_window_kernels(results):
             whole("windowed_warp", label, dt, ops.windowed_warp, x, flow, ops.windowed_warp.branches, took)
             if dt == torch.bfloat16:
                 record(results["warp_tiles"], err, case)
+                if hw == 864:
+                    wrapper_host_parts(args, case.library)
         # the wild flow: more over-budget tiles than the recompute takes
         x, flow = rn(2, 864, 864, 9), 2.5 * torch.randn(2, 864, 864, 2, generator=gen, device="cuda")
         counts = tw._plan(flow, 864, 864, spec)["counts"]
@@ -1013,7 +1160,7 @@ def check_window_kernels(results):
         case = Case("warp_tiles_v1", label, lambda a=args: ops.warp_tiles_v1(*a),
                     lambda a=args: ops.warp_tiles_reference(*a), bytes=nbytes, ops=nops,
                     library=grid_sample_library(x, flow))
-        err = check_output("warp_tiles_v1", label, dt, case.kern(), case.plain())
+        err = check_bits("warp_tiles_v1", label, dt, case.kern(), case.plain())
         most = int(plan["miss"].sum(-1).max())
         print(f"{'':26s} {label:30s} tiles {plan['miss'].shape[0] * plan['nt']}, misses per tile max "
               f"{most} (kf {spec1.kf})", flush=True)
@@ -1040,6 +1187,61 @@ def check_window_kernels(results):
                 print(f"{'':26s} {label:30s} bf16     Kernel H {cuda_ms(case.kern):.4f} ms  Kernel D "
                       f"{cuda_ms(lambda x=x: ops.fused_refiner_stack(x, blocks)):.4f} ms", flush=True)
         torch.cuda.empty_cache()
+
+
+def edge_slots(args, positions, gen):
+    """Kernel G's arguments with every tile's fixup slots replaced: the
+    query ``positions`` (distinct, in no order) in the first slots, the
+    sentinel T in the rest, random fixup values in all."""
+    import torch
+
+    x, yl, xl, fy, fx, oy, ox, fpos, fval, wh, ww, pm = args
+    pos = torch.full_like(fpos, yl.shape[1])
+    pos[:, : len(positions), 0] = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    return (x, yl, xl, fy, fx, oy, ox, pos, torch.randn(fval.shape, generator=gen, device="cuda"), wh, ww, pm)
+
+
+# fixup positions at a tile's first and last query and on both sides of the
+# boundaries between 256-query blocks, as a v1 tile (T = 4096) and a v2
+# tile (T = 256) are split
+EDGE_SLOTS = {"warp_tiles_v1": (4095, 0, 255, 256, 2047, 2048, 511, 512, 3839, 3840),
+              "warp_tiles": (255, 0, 127, 128)}
+
+
+def check_window_edges():
+    """Kernel G's two entries at the edges of their block split, bf16 and
+    f32, against warp_tiles_reference (bitwise), and the windowed functions as a
+    whole against warp_sample_reference: v1's partial tiles at 560^2 (560 =
+    8 * 64 + 48), EDGE_SLOTS, and widths other than the model's 9 (4 and 5,
+    and 3, which no template instantiates)."""
+    import torch
+
+    from roma_tpu_torch import ops
+    from roma_tpu_torch.graveyard import window_warp_v1 as v1
+    from roma_tpu_torch.ops import tile_window as tw
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    spec, spec1 = tw.WarpSpec(), v1.WindowSpec()
+    for dt in (torch.float32, torch.bfloat16):
+        for c in (9, 5, 4, 3):
+            x = torch.randn(2, 560, 560, c, generator=gen, device="cuda").to(dt)
+            flow1, flow2 = gentle_flow(gen, 2, 560, 560), speckled_flow(gen, 2, 560, 560)
+            plan1, plan2 = v1._plan(flow1, 560, 560, spec1), tw._plan(flow2, 560, 560, spec)
+            args = {"warp_tiles_v1": v1._tile_args(x, plan1, spec1), "warp_tiles": tw._tile_args(x, plan2, spec)}
+            for name, a in args.items():
+                label = f"{name[-2:] if name.endswith('v1') else 'v2'} 560^2 C{c}"
+                fn = getattr(ops, name)
+                check_bits(name, label, dt, fn(*a), ops.warp_tiles_reference(*a))
+                e = edge_slots(a, EDGE_SLOTS[name], gen)
+                check_bits(name, label + " edge slots", dt, fn(*e), ops.warp_tiles_reference(*e))
+            require(plan1["nh"] * 64 > 560 and int(plan1["miss"].sum(-1).max()) > 0,
+                    "v1 560^2: no partial tile or no miss")
+            whole("windowed_grid_sample", f"v1 560^2 C{c}", dt, v1.windowed_grid_sample, x, flow1,
+                  v1.windowed_grid_sample.branches, set())
+            over = bool((plan2["counts"] > spec.kf).any())
+            whole("windowed_warp", f"v2 560^2 C{c}", dt, ops.windowed_warp, x, flow2, ops.windowed_warp.branches,
+                  {"tile_recompute"} if over else set())
+    torch.cuda.empty_cache()
 
 
 def run_window_path(results):
@@ -1265,16 +1467,12 @@ def main(argv=None) -> int:
     print(ptxas, flush=True)
     check_tc_build(ptxas)
 
-    results = {
-        name: {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": 0,
-               "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": None,
-               "library_ms": None, "_bytes_ms": 0.0, "_ops_ms": 0.0}
-        for name, (src, rep) in KERNEL_INFO.items()
-    }
+    results = new_results()
     check_kernels(results)
     check_attention_kernels(results)
     check_attention_edges()
     check_window_kernels(results)
+    check_window_edges()
     check_wide_kernels(results)
     check_onehot_kernels(results)
     check_small_match()
@@ -1336,6 +1534,7 @@ def main(argv=None) -> int:
     require(not missing, f"kernels never launched: {missing}")
     for r in results.values():
         r["bound_by"] = "bytes" if r.pop("_bytes_ms") >= r.pop("_ops_ms") else "operations"
+        r["device_by"] = "+".join(sorted(r.pop("_methods")))
 
     torch.cuda.synchronize()
     print(json.dumps({"kernels": list(results.values())}))

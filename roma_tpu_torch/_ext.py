@@ -148,7 +148,12 @@ def check(rc: int, what: str):
 
 
 def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current device's current CUDA stream as a raw handle (the capture
+    stream inside a CUDA graph capture). PyTorch's own raw accessor, as its
+    generated kernels use it: ``torch.cuda.current_stream().cuda_stream``
+    builds a Stream object first, ~8 us of host time a launch on an H100
+    host against ~0.2."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

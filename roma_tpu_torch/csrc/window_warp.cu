@@ -1,126 +1,287 @@
 // Kernel G: the windowed tile sampler, exact bilinear per query tile plus
 // compacted fixups. One source, two entries:
-//   roma_window_warp     replaces roma_tpu/ops/tile_window.py:_warp_kernel
+//   roma_window_warp     replaces roma_tpu/ops/tile_window.py:123 _warp_kernel
 //                        (entry windowed_warp, the v2 sampler: 16x16 tiles,
 //                        64x128 windows, 32 fixup slots);
-//   roma_window_warp_v1  replaces graveyard/window_warp_v1.py:_kernel (entry
+//   roma_window_warp_v1  replaces graveyard/window_warp_v1.py:86 _kernel (entry
 //                        windowed_grid_sample: 64x64 tiles, 128x192 windows,
 //                        64 fixup slots).
 //
 // For tile i (image b = i / nt) with window origin (oy[i], ox[i]) in the
 // image zero-padded by pm, query q of the tile computes, in f32,
-//   v = in_window(q) ? ((1-fy) v00 + fy v10) (1-fx) + ((1-fy) v01 + fy v11) fx : 0
+//   v = in_window(q) ? sum over the taps (u, w) in (0,0), (0,1), (1,0), (1,1)
+//                      of x_uw * weight_uw : 0
 //   v += fval[i, s]          for the slot s with fpos[i, s] == q, if any
-// with v_uv the padded image at (oy + yl + u, ox + xl + v), in_window(q) =
-// 0 <= yl <= wh-2 and 0 <= xl <= ww-2, and one rounding to the I/O dtype at
-// the end, as the TPU kernels compute `where(ok, acc, 0) + fix`. The output
-// is (tiles, T, C), query-major.
+// with x_uw the padded image at (oy + yl + u, ox + xl + w) (0 off the image),
+// in_window(q) = 0 <= yl <= wh-2 and 0 <= xl <= ww-2, and one rounding to the
+// I/O dtype at the end, as the TPU kernels compute `where(ok, acc, 0) + fix`.
+// The weights, products and sums are warp_tiles_reference's, in its order
+// and without contraction (__fmul_rn, __fadd_rn), so on finite inputs the
+// kernel gives the plain version's bits. The output is (tiles, T, C),
+// query-major.
 //
 // What bounds it on the H100: bytes. Per query it reads four int/float
 // fields and four taps of C channels, and writes C values; at the v2
 // sampler's 864^2 x C9 shape (B = 2, 5,832 tiles) the call moves ~85 MB
-// against ~0.1 GFLOP. The TPU kernels stage each tile's window in VMEM
-// and sample it with one-hot matmuls, because the TPU has no fast gather;
-// a bf16 window of the v2 default is 147 KB, and the v1 window does not fit
-// whole in a block's 227 KB of shared memory. This kernel reads each
-// in-window query's four taps through L1 instead, straight from the
-// unpadded image: a padded-window position outside the image is a zero of
-// the padding, so a tap outside [0, H) x [0, W) reads 0 and the result is
-// the padded window's. One block per tile, one thread per (query, channel)
-// element so neighbouring threads read neighbouring channels of a tap and
-// write neighbouring outputs. The tile's slot of each query (its fixup) is
-// looked up in a shared table of T ints built from fpos; the positions are
-// distinct, as compact_miss makes them.
+// against ~0.1 GFLOP, ~25 us at the memory rate. The TPU kernels stage each
+// tile's window in VMEM and sample it with one-hot matmuls, because the TPU
+// has no fast gather; a bf16 v2 window is 147 KB and an f32 v1 window does
+// not fit in a block's shared memory, so here the taps come through L1 from
+// the unpadded image (a padded-window position off the image is a zero of
+// the padding). The design spends as few instructions per byte as it can:
+//   * One thread per query, 256 queries a block. A v2 tile is one block, a
+//     v1 tile (T = 4,096) sixteen, so B = 2 at 864^2 launches 5,832 or 6,272
+//     blocks of 256 threads: no 1,024-thread block, no half-empty last wave.
+//   * A thread reads its query's yl, xl, fy, fx once (neighbouring threads,
+//     neighbouring words), tests window and image once per tap, and keeps
+//     the C channels in f32 registers. C is a template parameter for 9 (the
+//     model's x_hat) and 4, 5, 6 (the test shapes); a looped kernel, one
+//     channel at a time with scalar loads, takes any other C.
+//   * A tap's C contiguous values come in the widest loads their alignment
+//     allows: for an even C every pixel starts on a multiple of
+//     gcd(C * sizeof(T), 16) bytes, so the tap is whole vectors of that
+//     width; for an odd C a pixel starts on an odd or an even element, and
+//     one lone element plus (C - 1) / 2 aligned pairs cover it either way, so
+//     every thread of a warp issues the same loads (bf16, C = 9: five loads
+//     a tap, not nine).
+//   * The block's outputs are staged in shared memory in f32 (256 x C x 4
+//     bytes, 9.2 KB at C = 9). After one barrier the slots whose query falls
+//     in the block's range add their fixups there (positions are distinct,
+//     as compact_miss makes them, so the order does not matter and nothing
+//     races); after a second the block rounds its range once and writes it
+//     with 16-byte stores. No per-tile slot table is built.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
 
+constexpr int QB = 256;  // queries (threads) a block of the templated kernels
+
+// channel j of a run of raw 32-bit words, as f32
 template <typename T>
-__global__ void __launch_bounds__(1024) window_warp_kernel(const T* __restrict__ x, const int* __restrict__ yl,
-                                   const int* __restrict__ xl, const float* __restrict__ fy,
-                                   const float* __restrict__ fx, const int* __restrict__ oy,
-                                   const int* __restrict__ ox, const int* __restrict__ fpos,
-                                   const float* __restrict__ fval, T* __restrict__ out, int nt,
-                                   int H, int W, int C, int Tq, int kf, int wh, int ww, int pm) {
-  extern __shared__ int slot_of[];  // Tq entries: the fixup slot of each query, or -1
-  const int tile = blockIdx.x, tid = threadIdx.x;
-  for (int q = tid; q < Tq; q += blockDim.x) slot_of[q] = -1;
-  __syncthreads();
-  for (int s = tid; s < kf; s += blockDim.x) {
-    const int p = fpos[(size_t)tile * kf + s];
-    if (p >= 0 && p < Tq) slot_of[p] = s;  // the sentinel Tq matches no query
+struct Elem;
+template <>
+struct Elem<float> {
+  __device__ static float get(const uint32_t* w, int j) { return __uint_as_float(w[j]); }
+  __device__ static float load(const float* p) { return __ldg(p); }
+};
+template <>
+struct Elem<__nv_bfloat16> {
+  __device__ static float get(const uint32_t* w, int j) {
+    const uint32_t u = w[j >> 1];  // little-endian: the even element is the low half
+    return __uint_as_float((j & 1) ? (u & 0xffff0000u) : (u << 16));
+  }
+  __device__ static float load(const __nv_bfloat16* p) {
+    return __uint_as_float(static_cast<uint32_t>(__ldg(reinterpret_cast<const unsigned short*>(p))) << 16);
+  }
+};
+
+// NW words from p in loads of VB bytes (p aligned to VB)
+template <int VB, int NW>
+__device__ __forceinline__ void load_words(const void* p, uint32_t (&w)[NW]) {
+  static_assert(NW * 4 % VB == 0, "whole vectors");
+  if constexpr (VB == 16) {
+#pragma unroll
+    for (int k = 0; k < NW / 4; ++k) {
+      const uint4 u = __ldg(static_cast<const uint4*>(p) + k);
+      w[4 * k] = u.x, w[4 * k + 1] = u.y, w[4 * k + 2] = u.z, w[4 * k + 3] = u.w;
+    }
+  } else if constexpr (VB == 8) {
+#pragma unroll
+    for (int k = 0; k < NW / 2; ++k) {
+      const uint2 u = __ldg(static_cast<const uint2*>(p) + k);
+      w[2 * k] = u.x, w[2 * k + 1] = u.y;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < NW; ++k) w[k] = __ldg(static_cast<const unsigned int*>(p) + k);
+  }
+}
+
+// the C channels of the pixel at p, as f32 (see the note at the top)
+template <typename T, int C>
+__device__ __forceinline__ void read_tap(const T* p, float (&v)[C]) {
+  constexpr int ES = sizeof(T);
+  static_assert(C >= 2, "C >= 2");
+  if constexpr (C % 2 == 0) {
+    constexpr int NB = C * ES;
+    constexpr int VB = NB % 16 == 0 ? 16 : NB % 8 == 0 ? 8 : 4;
+    uint32_t w[NB / 4];
+    load_words<VB>(p, w);
+#pragma unroll
+    for (int j = 0; j < C; ++j) v[j] = Elem<T>::get(w, j);
+  } else {
+    const bool odd = (reinterpret_cast<uintptr_t>(p) & (2 * ES - 1)) != 0;  // p is not on a pair
+    const float lone = Elem<T>::load(p + (odd ? 0 : C - 1));
+    uint32_t w[(C - 1) * ES / 4];
+    load_words<2 * ES>(p + (odd ? 1 : 0), w);
+    v[0] = odd ? lone : Elem<T>::get(w, 0);
+#pragma unroll
+    for (int j = 1; j < C - 1; ++j) v[j] = odd ? Elem<T>::get(w, j - 1) : Elem<T>::get(w, j);
+    v[C - 1] = odd ? Elem<T>::get(w, C - 2) : lone;
+  }
+}
+
+// 16 bytes of outputs from the f32 stage (s 16-byte aligned)
+__device__ __forceinline__ void store16(float* o, const float* s) {
+  *reinterpret_cast<float4*>(o) = *reinterpret_cast<const float4*>(s);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // lo in the low half, rounded to nearest even
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ void store16(__nv_bfloat16* o, const float* s) {
+  const float4 a = reinterpret_cast<const float4*>(s)[0], b = reinterpret_cast<const float4*>(s)[1];
+  *reinterpret_cast<uint4*>(o) =
+      make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+}
+
+// CT channels in registers, or CT = 0: the looped kernel for a run-time C
+template <typename T, int CT>
+__global__ void __launch_bounds__(QB) window_warp_kernel(
+    const T* __restrict__ x, const int* __restrict__ yl, const int* __restrict__ xl,
+    const float* __restrict__ fy, const float* __restrict__ fx, const int* __restrict__ oy,
+    const int* __restrict__ ox, const int* __restrict__ fpos, const float* __restrict__ fval,
+    T* __restrict__ out, int nt, int chunks, int H, int W, int c_arg, int Tq, int kf, int wh, int ww,
+    int pm) {
+  extern __shared__ __align__(16) float stage[];  // the block's queries x C, f32
+  const int C = CT > 0 ? CT : c_arg;
+  const int tile = blockIdx.x / chunks, tid = threadIdx.x;
+  const int q0 = (blockIdx.x - tile * chunks) * blockDim.x;  // the block's first query
+  const int nq = min(static_cast<int>(blockDim.x), Tq - q0);
+
+  if (tid < nq) {
+    const size_t qi = (size_t)tile * Tq + q0 + tid;
+    const int ylq = __ldg(yl + qi), xlq = __ldg(xl + qi);
+    float* s = stage + tid * C;
+    if (ylq >= 0 && ylq <= wh - 2 && xlq >= 0 && xlq <= ww - 2) {
+      const float wy = __ldg(fy + qi), wx = __ldg(fx + qi);
+      const int yy = __ldg(oy + tile) - pm + ylq, xx = __ldg(ox + tile) - pm + xlq;  // image coords
+      const float ay = 1.f - wy, ax = 1.f - wx;
+      const float wt[4] = {__fmul_rn(ay, ax), __fmul_rn(ay, wx), __fmul_rn(wy, ax), __fmul_rn(wy, wx)};
+      const bool r0 = static_cast<unsigned>(yy) < static_cast<unsigned>(H);
+      const bool r1 = static_cast<unsigned>(yy + 1) < static_cast<unsigned>(H);
+      const bool c0 = static_cast<unsigned>(xx) < static_cast<unsigned>(W);
+      const bool c1 = static_cast<unsigned>(xx + 1) < static_cast<unsigned>(W);
+      const bool ok[4] = {r0 && c0, r0 && c1, r1 && c0, r1 && c1};
+      const long long pix = ((long long)(tile / nt) * H + yy) * W + xx;  // tap (0, 0); only read if on the image
+      const long long off[4] = {pix, pix + 1, pix + W, pix + W + 1};
+      if constexpr (CT > 0) {
+        float acc[CT];
+#pragma unroll
+        for (int j = 0; j < CT; ++j) acc[j] = 0.f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (!ok[k]) continue;  // an off-image tap adds 0
+          float v[CT];
+          read_tap<T, CT>(x + off[k] * CT, v);
+#pragma unroll
+          for (int j = 0; j < CT; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(v[j], wt[k]));
+        }
+#pragma unroll
+        for (int j = 0; j < CT; ++j) s[j] = acc[j];
+      } else {
+        for (int c = 0; c < C; ++c) {
+          float acc = 0.f;
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (ok[k]) acc = __fadd_rn(acc, __fmul_rn(Elem<T>::load(x + off[k] * C + c), wt[k]));
+          s[c] = acc;
+        }
+      }
+    } else {
+      for (int c = 0; c < C; ++c) s[c] = 0.f;
+    }
   }
   __syncthreads();
 
-  const T* xb = x + (size_t)(tile / nt) * H * W * C;
-  const int y_org = oy[tile] - pm, x_org = ox[tile] - pm;  // window origin, image coords
-  const size_t q_base = (size_t)tile * Tq;
-  const float* fv = fval + (size_t)tile * kf * C;
-  auto tap = [&](int yy, int xx, int c) -> float {
-    return (yy >= 0 && yy < H && xx >= 0 && xx < W) ? roma::to_f32(xb[((size_t)yy * W + xx) * C + c])
-                                                    : 0.f;
-  };
-  for (int idx = tid; idx < Tq * C; idx += blockDim.x) {
-    const int q = idx / C, c = idx - q * C;
-    const size_t qi = q_base + q;
-    const int ylq = yl[qi], xlq = xl[qi];
-    float v = 0.f;
-    if (ylq >= 0 && ylq <= wh - 2 && xlq >= 0 && xlq <= ww - 2) {
-      const int yy = y_org + ylq, xx = x_org + xlq;
-      const float wy = fy[qi], wx = fx[qi];
-      const float top = tap(yy, xx, c) * (1.f - wy) + tap(yy + 1, xx, c) * wy;
-      const float bot = tap(yy, xx + 1, c) * (1.f - wy) + tap(yy + 1, xx + 1, c) * wy;
-      v = top * (1.f - wx) + bot * wx;
+  // the fixups of the slots whose query lies in this block's range
+  for (int sl = tid; sl < kf; sl += blockDim.x) {
+    const int p = __ldg(fpos + (size_t)tile * kf + sl) - q0;  // the sentinel Tq lands past nq
+    if (p >= 0 && p < nq) {
+      const float* fv = fval + ((size_t)tile * kf + sl) * C;
+      for (int c = 0; c < C; ++c) stage[p * C + c] = __fadd_rn(stage[p * C + c], __ldg(fv + c));
     }
-    const int s = slot_of[q];
-    if (s >= 0) v += fv[(size_t)s * C + c];
-    out[qi * C + c] = roma::from_f32<T>(v);
   }
+  __syncthreads();
+
+  // one rounding, 16-byte stores of the block's contiguous output range
+  T* o = out + ((size_t)tile * Tq + q0) * C;
+  const int n = nq * C;
+  constexpr int VEC = 16 / sizeof(T);
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+    const int nvec = n / VEC;
+    for (int v = tid; v < nvec; v += blockDim.x) store16(o + v * VEC, stage + v * VEC);
+    done = nvec * VEC;
+  }
+  for (int i = done + tid; i < n; i += blockDim.x) o[i] = roma::from_f32<T>(stage[i]);
+}
+
+template <typename T, int CT>
+cudaError_t launch_c(const void* x, const void* yl, const void* xl, const void* fy, const void* fx,
+                     const void* oy, const void* ox, const void* fpos, const void* fval, void* out,
+                     int n_tiles, int nt, int H, int W, int C, int Tq, int kf, int wh, int ww, int pm,
+                     int threads, cudaStream_t s) {
+  const size_t smem = (size_t)threads * C * sizeof(float);
+  cudaError_t err = roma::allow_smem(window_warp_kernel<T, CT>, smem);
+  if (err != cudaSuccess) return err;
+  const int chunks = (Tq + threads - 1) / threads;
+  window_warp_kernel<T, CT><<<(unsigned)n_tiles * chunks, threads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const int*>(yl), static_cast<const int*>(xl),
+      static_cast<const float*>(fy), static_cast<const float*>(fx), static_cast<const int*>(oy),
+      static_cast<const int*>(ox), static_cast<const int*>(fpos), static_cast<const float*>(fval),
+      static_cast<T*>(out), nt, chunks, H, W, C, Tq, kf, wh, ww, pm);
+  return cudaGetLastError();
 }
 
 int launch(const void* x, const void* yl, const void* xl, const void* fy, const void* fx,
            const void* oy, const void* ox, const void* fpos, const void* fval, void* out,
            int n_tiles, int nt, int H, int W, int C, int Tq, int kf, int wh, int ww, int pm,
-           int dtype, int threads, void* stream) {
-  if (n_tiles < 1 || nt < 1 || C < 1 || Tq < 1 || kf < 0 || wh < 2 || ww < 2)
+           int dtype, void* stream) {
+  if (n_tiles < 1 || nt < 1 || C < 1 || Tq < 1 || kf < 0 || wh < 2 || ww < 2 || H < 1 || W < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)Tq * sizeof(int);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the templated kernels' vector loads need a 16-byte aligned image
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  // the looped kernel stages at most 96 KB: fewer queries a block for a wide C
+  int looped = QB;
+  while (looped > 32 && (size_t)looped * C * sizeof(float) > 96 * 1024) looped /= 2;
+#define ROMA_WARP_ARGS x, yl, xl, fy, fx, oy, ox, fpos, fval, out, n_tiles, nt, H, W, C, Tq, kf, wh, ww, pm
   ROMA_DISPATCH_DTYPE(dtype, {
-    cudaError_t err = roma::allow_smem(window_warp_kernel<scalar_t>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    window_warp_kernel<scalar_t><<<n_tiles, threads, smem, s>>>(
-        static_cast<const scalar_t*>(x), static_cast<const int*>(yl),
-        static_cast<const int*>(xl), static_cast<const float*>(fy),
-        static_cast<const float*>(fx), static_cast<const int*>(oy),
-        static_cast<const int*>(ox), static_cast<const int*>(fpos),
-        static_cast<const float*>(fval), static_cast<scalar_t*>(out), nt, H, W, C, Tq, kf, wh,
-        ww, pm);
+    cudaError_t err;
+    switch (aligned ? C : 0) {
+      case 4: err = launch_c<scalar_t, 4>(ROMA_WARP_ARGS, QB, s); break;
+      case 5: err = launch_c<scalar_t, 5>(ROMA_WARP_ARGS, QB, s); break;
+      case 6: err = launch_c<scalar_t, 6>(ROMA_WARP_ARGS, QB, s); break;
+      case 9: err = launch_c<scalar_t, 9>(ROMA_WARP_ARGS, QB, s); break;
+      default: err = launch_c<scalar_t, 0>(ROMA_WARP_ARGS, looped, s);
+    }
+    return static_cast<int>(err);
   });
-  return static_cast<int>(cudaGetLastError());
+#undef ROMA_WARP_ARGS
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// v2 tiles are small (T = 256 at the default): one thread per query-channel
-// element of a 256-thread block covers a C = 9 tile in nine steps.
+// The two entries launch the same kernels: the v1 and v2 samplers differ
+// in their tiles and windows, which are arguments.
 extern "C" int roma_window_warp(const void* x, const void* yl, const void* xl, const void* fy,
                                 const void* fx, const void* oy, const void* ox, const void* fpos,
                                 const void* fval, void* out, int n_tiles, int nt, int H, int W,
                                 int C, int Tq, int kf, int wh, int ww, int pm, int dtype,
                                 void* stream) {
   return launch(x, yl, xl, fy, fx, oy, ox, fpos, fval, out, n_tiles, nt, H, W, C, Tq, kf, wh, ww,
-                pm, dtype, 256, stream);
+                pm, dtype, stream);
 }
 
-// v1 tiles are 16x larger (T = 4096): a 1024-thread block, so a tile's
-// 36,864 elements at C = 9 take 36 steps, and the 392 tiles of a B = 2,
-// 864^2 batch still give each of the 132 SMs about three blocks.
 extern "C" int roma_window_warp_v1(const void* x, const void* yl, const void* xl, const void* fy,
                                    const void* fx, const void* oy, const void* ox,
                                    const void* fpos, const void* fval, void* out, int n_tiles,
                                    int nt, int H, int W, int C, int Tq, int kf, int wh, int ww,
                                    int pm, int dtype, void* stream) {
   return launch(x, yl, xl, fy, fx, oy, ox, fpos, fval, out, n_tiles, nt, H, W, C, Tq, kf, wh, ww,
-                pm, dtype, 1024, stream);
+                pm, dtype, stream);
 }

@@ -64,6 +64,6 @@ class CNNandDinov2(nn.Module):
     def forward(self, x: torch.Tensor, upsample: bool = False) -> dict[int, torch.Tensor]:
         pyramid = self.cnn(x)
         if not upsample:
-            with torch.no_grad():
-                pyramid[16] = self.dinov2(x)
+            with torch.no_grad():  # in DINOv2's own dtype (RegressionMatcher's coarse_dtype)
+                pyramid[16] = self.dinov2(x.to(self.dinov2.cls_token.dtype))
         return pyramid

@@ -5,7 +5,10 @@ roma_tpu/models/roma.py).
 (DINOv2 + GP + decoder, scales 16..1), then a refine-only pass at
 ``upsample_res`` (scales 8..1, seeded with the finest coarse flow), certainty
 attenuation from the first pass's scale-16 logits, out-of-range ->
-certainty 0, clamp to [-1, 1], and the symmetric side-by-side warp.
+certainty 0, clamp to [-1, 1], and the warp: side by side when symmetric,
+A -> B otherwise. With ``upsample_preds=False`` the coarse pass's finest
+flow and certainty are the result, bilinearly resized to the output
+resolution (the coarse resolution then).
 """
 from __future__ import annotations
 
@@ -22,32 +25,49 @@ from .matcher import RoMaNet
 
 
 class RegressionMatcher:
-    """The symmetric two-pass matcher of ``roma_outdoor``: coarse pass at
-    (h, w), refinement at ``upsample_res``, threshold-balanced sampling."""
-
-    SAMPLE_THRESH = 0.05
+    """The two-pass matcher of ``roma_outdoor``, with the JAX package's
+    arguments and defaults: coarse pass at (h, w), refinement at
+    ``upsample_res`` (``upsample_preds``), ``symmetric`` side-by-side warps,
+    certainty attenuation by the coarse logits (``attenuate_cert``),
+    ``sample_mode`` / ``sample_thresh`` for :meth:`sample`. The net is built
+    already, so its dtype is its own; ``coarse_dtype``, when given, casts
+    DINOv2's parameters (in place, on ``net``) so that the coarse tokens are
+    computed in it, as the JAX package's ``coarse_dtype`` does."""
 
     def __init__(
         self,
         net: RoMaNet,
         h: int = 560,
         w: int = 560,
+        sample_mode: str = "threshold_balanced",
+        upsample_preds: bool = True,
+        symmetric: bool = True,
+        sample_thresh: float = 0.05,
+        attenuate_cert: bool = True,
         upsample_res: tuple[int, int] = (864, 864),
+        coarse_dtype: torch.dtype | None = None,
         seed: int = 0,
     ):
         if h % 14 or w % 14:
             raise ValueError(f"coarse res must be a multiple of 14, got {(h, w)}")
         self.net = net.eval()
+        if coarse_dtype is not None:
+            net.encoder.dinov2.to(coarse_dtype)
         self.h_resized, self.w_resized = h, w
+        self.sample_mode, self.sample_thresh = sample_mode, sample_thresh
+        self.upsample_preds, self.symmetric, self.attenuate_cert = upsample_preds, symmetric, attenuate_cert
         self.upsample_res = tuple(upsample_res)
-        p = next(net.encoder.parameters())
+        p = next(net.encoder.cnn.parameters())
         self.device, self.dtype = p.device, p.dtype
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def get_output_resolution(self) -> tuple[int, int]:
+        return self.upsample_res if self.upsample_preds else (self.h_resized, self.w_resized)
 
     def _match_coarse(self, im_A, im_B, out_hw, gm_logit_bias=None):
         hs, ws = im_A.shape[1:3]
         sf = math.sqrt(hs * ws / 560.0**2)
-        corresps = self.net(im_A, im_B, symmetric=True, scale_factor=sf, gm_logit_bias=gm_logit_bias)
+        corresps = self.net(im_A, im_B, symmetric=self.symmetric, scale_factor=sf, gm_logit_bias=gm_logit_bias)
         low = interpolate(corresps[16]["certainty"], out_hw, mode="bilinear")
         low = 0.5 * low * (low < 0)
         return low, corresps[1]["flow"], corresps[1]["certainty"]
@@ -55,7 +75,7 @@ class RegressionMatcher:
     def _match_upsample(self, im_A, im_B, flow, certainty):
         hs, ws = im_A.shape[1:3]
         sf = math.sqrt(hs * ws / 560.0**2)
-        corresps = self.net(im_A, im_B, symmetric=True, upsample=True, flow=flow,
+        corresps = self.net(im_A, im_B, symmetric=self.symmetric, upsample=True, flow=flow,
                             certainty=certainty, scale_factor=sf)
         return corresps[1]["flow"], corresps[1]["certainty"]
 
@@ -66,7 +86,10 @@ class RegressionMatcher:
         wrong = (flow.abs() > 1).any(dim=-1)
         cert = torch.where(wrong, torch.zeros_like(cert), cert)
         flow = flow.clamp(-1, 1)
-        grid = normalized_grid(hs, ws, device=flow.device).expand(b // 2, hs, ws, 2)
+        grid = normalized_grid(hs, ws, device=flow.device)
+        if not self.symmetric:
+            return torch.cat((grid.expand(b, hs, ws, 2), flow), dim=-1), cert
+        grid = grid.expand(b // 2, hs, ws, 2)
         a2b, b2a = flow.chunk(2)
         q_warp = torch.cat((grid, a2b), dim=-1)
         s_warp = torch.cat((b2a, grid), dim=-1)
@@ -89,23 +112,27 @@ class RegressionMatcher:
 
     @torch.inference_mode()
     def match(self, im_A_input, im_B_input, *, im_A_high_res=None, im_B_high_res=None,
-              gm_logit_bias=None):
+              batched: bool = True, gm_logit_bias=None):
         """Dense two-view match -> (warp, certainty).
 
         Accepts paths / PIL images (resized on the host) or pre-normalized
-        NHWC arrays or tensors at the coarse resolution. Returns the
-        side-by-side warp (B, H, 2W, 4), (x_A, y_A, x_B, y_B) in [-1, 1], and
-        certainty (B, H, 2W), at ``upsample_res``; a single pair (PIL, path
-        or an HWC array) comes back without the batch axis.
+        NHWC arrays or tensors at the coarse resolution. Returns the warp,
+        (x_A, y_A, x_B, y_B) in [-1, 1], and its certainty at
+        :meth:`get_output_resolution`: (B, H, 2W, 4) and (B, H, 2W) side by
+        side when symmetric, (B, H, W, 4) and (B, H, W) otherwise. A single
+        pair (PIL, path or an HWC array), or any input with
+        ``batched=False``, comes back without the batch axis (the first
+        pair's result).
         """
-        out_hw = self.upsample_res
+        out_hw = self.get_output_resolution()
         im_A_u = im_B_u = None
         # inputs of both passes go to the card before the coarse pass: a
         # pageable copy waits for the card, so one issued later idles it
         if isinstance(im_A_input, (str, Path, Image.Image)):
             pil_A, pil_B = load_image(im_A_input), load_image(im_B_input)
             im_A, im_B = self._prep_pair(pil_A, pil_B, (self.h_resized, self.w_resized))
-            im_A_u, im_B_u = self._prep_pair(pil_A, pil_B, out_hw)
+            if self.upsample_preds:
+                im_A_u, im_B_u = self._prep_pair(pil_A, pil_B, out_hw)
             unbatch = True
         else:
             unbatch = len(im_A_input.shape) == 3
@@ -115,16 +142,23 @@ class RegressionMatcher:
                                  f"{tuple(im_A.shape)} and {tuple(im_B.shape)}")
             if im_A.shape[1] % 14 or im_A.shape[2] % 14:
                 raise ValueError("array inputs must have H, W divisible by 14")
-            if im_A_high_res is not None:
+            if im_A_high_res is not None and self.upsample_preds:
                 im_A_u, im_B_u = self._as_batch(im_A_high_res), self._as_batch(im_B_high_res)
+        unbatch = unbatch or not batched
         if gm_logit_bias is not None:
             gm_logit_bias = torch.as_tensor(gm_logit_bias, device=self.device, dtype=torch.float32)
 
-        low, flow_fine, cert_fine = self._match_coarse(im_A, im_B, out_hw, gm_logit_bias)
-        if im_A_u is None:  # array input without high-res copies: bicubic upsample
-            im_A_u = interpolate(im_A, out_hw, mode="bicubic")
-            im_B_u = interpolate(im_B, out_hw, mode="bicubic")
-        flow, cert = self._match_upsample(im_A_u, im_B_u, flow_fine, cert_fine)
+        low, flow, cert = self._match_coarse(im_A, im_B, out_hw, gm_logit_bias)
+        if not self.attenuate_cert:
+            low = torch.zeros_like(low)
+        if self.upsample_preds:
+            if im_A_u is None:  # array input without high-res copies: bicubic upsample
+                im_A_u = interpolate(im_A, out_hw, mode="bicubic")
+                im_B_u = interpolate(im_B, out_hw, mode="bicubic")
+            flow, cert = self._match_upsample(im_A_u, im_B_u, flow, cert)
+        else:
+            flow = interpolate(flow, out_hw, mode="bilinear")
+            cert = interpolate(cert, out_hw, mode="bilinear")
         warp, certainty = self._assemble(flow, cert, low)
         if unbatch:
             return warp[0], certainty[0]
@@ -132,7 +166,7 @@ class RegressionMatcher:
 
     def sample(self, matches, certainty, num: int = 10000, key: torch.Generator | int | None = None,
                generator: torch.Generator | None = None):
-        """Balanced sparse sampling (reference matcher.py:552-573).
+        """Sparse sampling in ``sample_mode`` (reference matcher.py:552-573).
 
         ``key``, as the JAX package's ``sample(key=)`` takes it: a
         ``torch.Generator``, or an int that seeds a fresh generator on this
@@ -147,7 +181,7 @@ class RegressionMatcher:
         m = torch.as_tensor(matches).reshape(-1, 4)
         c = torch.as_tensor(certainty).reshape(-1)
         return balanced_sample(m, c, num, generator=gen if gen is not None else self.generator,
-                               thresh=self.SAMPLE_THRESH)
+                               thresh=self.sample_thresh, mode=self.sample_mode)
 
     @staticmethod
     def _to_pixel(coords, h, w):

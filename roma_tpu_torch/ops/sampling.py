@@ -29,13 +29,19 @@ def balanced_sample(
     num: int,
     generator: torch.Generator | None = None,
     thresh: float = 0.05,
+    mode: str = "threshold_balanced",
 ):
-    """The reference's ``threshold_balanced`` sampling: matches (N, 4),
-    certainty (N,) -> (matches (num, 4), certainty (num,)). Certainty above
-    ``thresh`` saturates to 1; 4*num candidates are drawn by certainty, then
-    num of them by inverse KDE density."""
+    """Sparse sampling of matches (N, 4) by certainty (N,) -> (matches
+    (num, 4), certainty (num,)), in the four modes of the JAX package: with
+    "threshold" in ``mode``, certainty above ``thresh`` saturates to 1; with
+    "balanced", 4*num candidates are drawn by certainty, then num of them by
+    inverse KDE density; without it, num are drawn by certainty alone."""
     cert = certainty.float()
-    cert = torch.where(cert > thresh, torch.ones_like(cert), cert)
+    if "threshold" in mode:
+        cert = torch.where(cert > thresh, torch.ones_like(cert), cert)
+    if "balanced" not in mode:
+        idx = multinomial_no_replacement(cert, num, generator)
+        return matches[idx], cert[idx]
     expansion = min(4 * num, cert.shape[0])
     good_idx = multinomial_no_replacement(cert, expansion, generator)
     good_matches, good_cert = matches[good_idx], cert[good_idx]

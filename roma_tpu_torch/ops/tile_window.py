@@ -154,28 +154,55 @@ def warp_tiles_reference(x, yl, xl, fy, fx, oy, ox, fpos, fval, wh, ww, pm):
     return (val + fix[:, :t]).to(x.dtype)
 
 
-def _tiles(entry, fn, x, yl, xl, fy, fx, oy, ox, fpos, fval, wh, ww, pm):
-    """Shared wrapper of Kernel G's two entries (see warp_tiles)."""
-    if x.device.type == "cpu":
-        return warp_tiles_reference(x, yl, xl, fy, fx, oy, ox, fpos, fval, wh, ww, pm)
-    what = fn.__name__
-    _ext.require_cuda(what, x, yl, xl, fy, fx, oy, ox, fpos, fval)
+_FIELDS = ("x", "yl", "xl", "fy", "fx", "oy", "ox", "fpos", "fval")
+_FIELD_DTYPES = (torch.int32, torch.int32, torch.float32, torch.float32, torch.int32, torch.int32, torch.int32,
+                 torch.float32)
+
+
+def tile_checks(what, x, yl, xl, fy, fx, oy, ox, fpos, fval):
+    """Kernel G's argument contract, in one pass: the dtypes and shapes of
+    :func:`warp_tiles_reference`, the tiles a whole number per image, every
+    tensor contiguous and on x's device (ValueError); x not requiring a
+    gradient (RuntimeError). Returns (B, H, W, C, tiles, T, kf)."""
     b, h, w, c = x.shape
     bnt, t = yl.shape
     kf = fpos.shape[1]
-    i32, f32 = torch.int32, torch.float32
-    want = ((yl, i32, (bnt, t)), (xl, i32, (bnt, t)), (fy, f32, (bnt, t)), (fx, f32, (bnt, t)),
-            (oy, i32, (bnt,)), (ox, i32, (bnt,)), (fpos, i32, (bnt, kf, 1)), (fval, f32, (bnt, kf, c)))
-    bad = [(tuple(a.shape), a.dtype) for a, dt, shp in want if a.dtype != dt or tuple(a.shape) != shp]
-    if bad or bnt % b:
-        raise ValueError(f"{what}: tile fields of {bnt} tiles x {t} queries, kf {kf}: got {bad}")
+    ts = (x, yl, xl, fy, fx, oy, ox, fpos, fval)
+    dev = x.get_device()
+    if ((yl.dtype, xl.dtype, fy.dtype, fx.dtype, oy.dtype, ox.dtype, fpos.dtype, fval.dtype) != _FIELD_DTYPES
+            or not xl.shape == fy.shape == fx.shape == yl.shape or oy.shape != (bnt,) or ox.shape != (bnt,)
+            or fpos.shape != (bnt, kf, 1) or fval.shape != (bnt, kf, c) or bnt % b
+            or not all(a.is_contiguous() and a.get_device() == dev for a in ts)):
+        got = ", ".join(f"{n} {a.dtype} {tuple(a.shape)}{'' if a.is_contiguous() else ' strided'} on {a.device}"
+                        for n, a in zip(_FIELDS, ts))
+        raise ValueError(f"{what}: want x (B, H, W, C) and warp_tiles_reference's int32 / float32 tile fields, "
+                         f"contiguous, on x's device, the tiles a whole number per image; got {got}")
+    if x.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(f"{what}: forward-only kernel, no backward")
+    return b, h, w, c, bnt, t, kf
+
+
+_ENTRIES: dict = {}  # the bound C entry points, so that a call takes no lock
+
+
+def _tiles(entry, fn, x, yl, xl, fy, fx, oy, ox, fpos, fval, wh, ww, pm):
+    """Shared wrapper of Kernel G's two entries (see warp_tiles): ``entry``
+    names the C entry point, ``fn`` the wrapper that counts the launch."""
+    if x.device.type == "cpu":
+        return warp_tiles_reference(x, yl, xl, fy, fx, oy, ox, fpos, fval, wh, ww, pm)
+    name = fn.__name__
+    if not x.is_cuda:
+        raise ValueError(f"{name}: tensors must be on a CUDA device or the CPU, got {x.device}")
+    b, h, w, c, bnt, t, kf = tile_checks(name, x, yl, xl, fy, fx, oy, ox, fpos, fval)
+    code = _ext.dtype_code(x, name)
     out = torch.empty((bnt, t, c), dtype=x.dtype, device=x.device)
     if bnt == 0:
         return out
-    rc = entry(x.data_ptr(), yl.data_ptr(), xl.data_ptr(), fy.data_ptr(), fx.data_ptr(), oy.data_ptr(),
+    launch = _ENTRIES.get(entry) or _ENTRIES.setdefault(entry, getattr(_ext.lib(), entry))
+    rc = launch(x.data_ptr(), yl.data_ptr(), xl.data_ptr(), fy.data_ptr(), fx.data_ptr(), oy.data_ptr(),
                ox.data_ptr(), fpos.data_ptr(), fval.data_ptr(), out.data_ptr(), bnt, bnt // b,
-               h, w, c, t, kf, wh, ww, pm, _ext.dtype_code(x, what), _ext.stream())
-    _ext.check(rc, what)
+               h, w, c, t, kf, wh, ww, pm, code, _ext.stream())
+    _ext.check(rc, name)
     fn.launches += 1
     return out
 
@@ -183,15 +210,13 @@ def _tiles(entry, fn, x, yl, xl, fy, fx, oy, ox, fpos, fval, wh, ww, pm):
 def warp_tiles(x, yl, xl, fy, fx, oy, ox, fpos, fval, wh, ww, pm):
     """Kernel G, the v2 entry (replaces roma_tpu/ops/tile_window.py:_warp_kernel).
     Arguments and result as :func:`warp_tiles_reference`."""
-    entry = _ext.lib().roma_window_warp if x.is_cuda else None
-    return _tiles(entry, warp_tiles, x, yl, xl, fy, fx, oy, ox, fpos, fval, wh, ww, pm)
+    return _tiles("roma_window_warp", warp_tiles, x, yl, xl, fy, fx, oy, ox, fpos, fval, wh, ww, pm)
 
 
 def warp_tiles_v1(x, yl, xl, fy, fx, oy, ox, fpos, fval, wh, ww, pm):
     """Kernel G, the v1 entry (replaces graveyard/window_warp_v1.py:_kernel):
     the same function, launched for 64x64 tiles."""
-    entry = _ext.lib().roma_window_warp_v1 if x.is_cuda else None
-    return _tiles(entry, warp_tiles_v1, x, yl, xl, fy, fx, oy, ox, fpos, fval, wh, ww, pm)
+    return _tiles("roma_window_warp_v1", warp_tiles_v1, x, yl, xl, fy, fx, oy, ox, fpos, fval, wh, ww, pm)
 
 
 warp_tiles.launches = 0

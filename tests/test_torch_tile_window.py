@@ -10,7 +10,7 @@ import jax.numpy as jnp
 
 from roma_tpu.ops import tile_window as jtw
 from roma_tpu_torch.ops import WarpSpec, grid_sample, warp_tiles, windowed_warp
-from roma_tpu_torch.ops.tile_window import _plan
+from roma_tpu_torch.ops.tile_window import _plan, _tile_args, tile_checks
 
 SPEC = dict(th=8, tw=8, wh=16, xq=8, ns=3, pm=4, kf=8, nt_bad=4)
 KINDS = ["smooth", "offimage", "speckle", "wild"]
@@ -113,3 +113,38 @@ def test_windowed_warp_small_image_branch():
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(got, plain, atol=1e-5, rtol=1e-5)
     assert windowed_warp.branches["small_image"] == before + 1
+
+
+def _good_tile_args():
+    b, c, h, w = 2, 5, 40, 40
+    x = torch.from_numpy(np.random.RandomState(8).randn(b, h, w, c).astype(np.float32))
+    spec = WarpSpec(**SPEC)
+    return list(_tile_args(x, _plan(torch.from_numpy(_flow(h, w, b, "speckle", seed=9)), h, w, spec), spec))
+
+
+BAD_TILE_ARGS = {
+    "yl int64": (1, lambda a: a.long(), ValueError),
+    "fy short by a query": (3, lambda a: a[:, :-1].contiguous(), ValueError),
+    "fx not contiguous": (4, lambda a: a.t().contiguous().t(), ValueError),
+    "fval of another C": (8, lambda a: a[..., :-1].contiguous(), ValueError),
+    "tiles not a whole number per image": (None, None, ValueError),
+    "x requires grad": (0, lambda a: a.clone().requires_grad_(), RuntimeError),
+}
+
+
+@pytest.mark.parametrize("case", [None, *BAD_TILE_ARGS])
+def test_tile_checks_hold_kernel_g_to_its_contract(case):
+    """Kernel G's wrapper checks every argument in one pass before a launch
+    (tile_checks, run here on CPU tensors): the plan's own arguments pass,
+    each broken one raises."""
+    args = _good_tile_args()
+    if case is None:
+        assert tile_checks("warp_tiles", *args[:9]) == (2, 40, 40, 5, args[1].shape[0], 64, SPEC["kf"])
+        return
+    i, change, err = BAD_TILE_ARGS[case]
+    if i is None:  # one tile fewer: 49 tiles over 2 images
+        args = [args[0]] + [a[1:] for a in args[1:9]] + args[9:]
+    else:
+        args[i] = change(args[i])
+    with pytest.raises(err):
+        tile_checks("warp_tiles", *args[:9])
