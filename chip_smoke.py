@@ -10,7 +10,14 @@
    float32, and times both with CUDA events (median of 20 calls: the call
    time, the wrapper's host work included). The kernel and its library call
    also get a device time: calls captured in a CUDA graph and replayed
-   between one pair of events (device_ms; see device_ms()).
+   between one pair of events (device_ms; see device_ms()). Kernel D is
+   timed beside the model's eager cuDNN stack on the modules its blocks are
+   folded from (stack_ms, stack_device_ms). In bf16, A, B, D and E are also
+   held to ULP_BARS, and for B and D a planted fault in the plain version
+   must break that bar (check_power). Right after, check_match_edges holds
+   D and B off the main path's shapes: D's generic instantiation and ragged
+   tiles, B's scalar path, idle lanes and every radius, and their vector
+   paths refusing a base off 16 bytes.
 3. Checks the whole match on a small configuration: the kernel path on the
    card against the plain path on the CPU, same weights, float32; once with
    the defaults and once non-symmetric and coarse-only.
@@ -101,17 +108,28 @@ def require(ok, what: str):
 BF16_REL, BF16_ABS = 3e-2, 1e-2
 # f32 check (TF32 off everywhere): only the summation order differs.
 F32_REL = 1e-4
-# The bf16 attention kernels are held to a second bar as well, ATTN_ULPS
-# bf16 ulps of the largest reference value, on inputs at the model's logit
-# scale (q and k drawn so that q.k / sqrt(D) has std LOGIT_STD). Kernel A
-# rounds the unnormalized softmax numerators to bf16 for P.V and divides by
-# their f32 sum after it, sdpa_reference rounds the normalized
-# probabilities; Kernel E and attention_backward_reference both round P and
-# dS. Either way an output moves by up to two ulps of the largest value
-# (measured on an H100), while a softmax scale off by 2% moves it by 5.5 or
-# more (check_attention_kernels asserts it at every full-width shape).
+# Some bf16 kernels are held to a second bar as well, ULP_BARS[name] bf16
+# ulps of the largest reference value, and check_power asserts at every
+# full-width shape that one planted fault in the plain version breaks it.
+# Attention (A, E), on inputs at the model's logit scale (q and k drawn so
+# that q.k / sqrt(D) has std LOGIT_STD): Kernel A rounds the unnormalized
+# softmax numerators to bf16 for P.V and divides by their f32 sum after it,
+# sdpa_reference rounds the normalized probabilities; Kernel E and
+# attention_backward_reference both round P and dS. Either way an output
+# moves by up to two ulps of the largest value (measured on an H100), while
+# a softmax scale off by 2% moves it by 5.5 or more.
 ATTN_ULPS = 4
 LOGIT_STD = 2.0
+# D and B round where their plain versions round (D: t and each block's
+# output; B: the output), so only f32 summation orders differ: a rounding
+# flip moves an output by one ulp of itself, and D carries a flip on
+# through its later blocks. Measured on an H100 at the full-width shapes:
+# D 0 to 1 ulp, B at most 0.5; the planted faults (FAULTS) move the plain
+# versions by 125 ulps or more.
+D_ULPS = 4
+B_ULPS = 4
+ULP_BARS = {"fused_attention_packed": ATTN_ULPS, "fused_attention": ATTN_ULPS,
+            "fused_attention_backward": ATTN_ULPS, "fused_refiner_stack": D_ULPS, "local_correlation": B_ULPS}
 
 KERNEL_INFO = {
     "fused_attention_packed": ("roma_tpu_torch/csrc/attention.cu", "roma_tpu/ops/pallas_attention.py:259"),
@@ -167,6 +185,8 @@ class Case:
     f32_ops: float = 0.0
     library: Callable | None = None
     library_graph: bool = True  # False: the library call cannot be captured (device_ms)
+    stack: Callable | None = None  # several PyTorch calls computing the same function (D: the model's cuDNN stack)
+    planted: Callable | None = None  # the plain version with one planted fault (FAULTS), for check_power
 
     def ops_ms(self) -> float:
         """The least time of the operations: tensor cores and CUDA cores run
@@ -315,26 +335,58 @@ def grid_sample_library(x, flow):
     return lambda: F.grid_sample(xn, g, mode="bilinear", padding_mode="zeros", align_corners=False)
 
 
-def refiner_blocks(gen, c=24, n=9):
-    """n folded refiner blocks of width c (Kernels D and H)."""
+def refiner_blocks(gen, c=24, n=9, k=5, device="cuda"):
+    """n folded refiner blocks of width c, depthwise k x k (Kernels D and H)."""
     import torch
 
     from roma_tpu_torch import ops
 
-    f = lambda *s, scale=1.0, shift=0.0: shift + scale * torch.randn(*s, generator=gen, device="cuda")
-    return [ops.fold_block(f(c, 1, 5, 5, scale=0.2), f(c, scale=0.1), f(c, scale=0.1, shift=1.0),
+    f = lambda *s, scale=1.0, shift=0.0: shift + scale * torch.randn(*s, generator=gen, device=device)
+    return [ops.fold_block(f(c, 1, k, k, scale=0.2), f(c, scale=0.1), f(c, scale=0.1, shift=1.0),
                            f(c, scale=0.1), f(c, scale=0.05), f(c, scale=0.2, shift=1.0).abs(),
                            f(c, c, 1, 1, scale=1.5 / c**0.5), f(c, scale=0.1)) for _ in range(n)]
 
 
 def refiner_cost(x, blocks):
-    """(bytes, ops) of a folded stack: x in, out, the weights; per pixel and
-    block a KxK depthwise and a CxC pointwise product, 2 ops per FMA."""
+    """(bytes, pointwise ops, depthwise ops) of a folded stack: each block's
+    input and output once plus its weights; per pixel and block a CxC
+    pointwise and a KxK depthwise product, 2 ops per FMA."""
     b, h, w, c = x.shape
     k = blocks[0]["dw"].shape[0]
-    per_block = k * k * c + c * c + 2 * c
-    return (2 * x.numel() * x.element_size() + 4 * per_block * len(blocks),
-            2 * len(blocks) * b * h * w * (k * k * c + c * c))
+    n, npx = len(blocks), b * h * w
+    return (n * (2 * x.numel() * x.element_size() + 4 * (k * k * c + c * c + 2 * c)),
+            2 * n * npx * c * c, 2 * n * npx * k * k * c)
+
+
+def refiner_edge_clamped(x, blocks):
+    """refiner_stack_reference with one planted fault: the depthwise conv
+    pads by repeating the image's edge instead of with zeros."""
+    import torch
+    import torch.nn.functional as F
+
+    dt, c = x.dtype, x.shape[-1]
+    y = x.permute(0, 3, 1, 2)
+    for blk in blocks:
+        p = blk["dw"].shape[0] // 2
+        t = F.conv2d(F.pad(y.float(), (p, p, p, p), mode="replicate"), blk["dw"].permute(2, 0, 1)[:, None],
+                     blk["db"], groups=c)
+        t = torch.relu(t).to(dt).float()
+        y = F.conv2d(t, blk["w2"].T[:, :, None, None], blk["b2"]).to(dt)
+    return y.permute(0, 2, 3, 1)
+
+
+def corr_fractions_swapped(f0, f1, radius, warp):
+    """local_correlation_reference with one planted fault: the bilinear fold
+    takes fx for fy and fy for fx."""
+    from roma_tpu_torch.ops import local_corr as lc
+
+    y0, x0, fy, fx = lc._base_indices(warp, f0.shape[1], f0.shape[2])
+    return lc.bilinear_fold(lc.integer_tap_dots(f0, f1, radius, y0, x0), fx, fy).to(f0.dtype)
+
+
+# what each Case.planted plants in its plain version
+FAULTS = {"fused_refiner_stack": "edge-clamped instead of zero padding",
+          "local_correlation": "fractions fy and fx swapped"}
 
 
 def kernel_cases(gen, dt):
@@ -343,6 +395,7 @@ def kernel_cases(gen, dt):
     import torch
 
     from roma_tpu_torch import ops
+    from roma_tpu_torch.tools.bench_hcw_refiner import make_modules, model_stack
 
     rn = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dt)
     es = torch.finfo(dt).bits // 8
@@ -374,7 +427,8 @@ def kernel_cases(gen, dt):
                         lambda a=f0, b=f1, r=r, w=w: ops.local_correlation_reference(a, b, r, w),
                         bytes=npx * (2 * c * es + 8 + (2 * r + 1) ** 2 * es),
                         ops=npx * 2 * c * (2 * r + 2) ** 2, f32_ops=npx * 8 * (2 * r + 1) ** 2,
-                        peak=PEAK_BF16_TENSOR if dt == torch.bfloat16 else PEAK_F32))
+                        peak=PEAK_BF16_TENSOR if dt == torch.bfloat16 else PEAK_F32,
+                        planted=lambda a=f0, b=f1, r=r, w=w: corr_fractions_swapped(a, b, r, w)))
     # Kernel C: the x_hat lookup at every scale of both passes, B = 2
     for label, hw, c in (("coarse s16 40^2 C512", 40, 512), ("coarse s8 70^2 C512", 70, 512),
                          ("coarse s4 140^2 C256", 140, 256), ("coarse s2 280^2 C64", 280, 64),
@@ -387,32 +441,42 @@ def kernel_cases(gen, dt):
                         lambda y=y, w=w: ops.warp_sample(y, w),
                         lambda y=y, w=w: ops.warp_sample_reference(y, w),
                         bytes=npx * (2 * c * es + 8), ops=8 * npx * c, library=grid_sample_library(y, w)))
-    # Kernel D: the scale-1 refiner stack, 9 folded blocks of C = 24
-    blocks = refiner_blocks(gen)
+    # Kernel D: the scale-1 refiner stack, 9 blocks of C = 24 folded from
+    # eval-mode refiner_block modules, beside those modules' cuDNN stack as
+    # the match runs a stack wider than 32 (bf16 modules, as under amp); the
+    # pointwise product counts at the tensor cores' peak in bf16 (the
+    # kernel's two bf16 products), the depthwise at the CUDA cores'
+    mods = make_modules(24, gen, "cuda")
+    with torch.no_grad():
+        blocks = ops.fold_refiner(mods[0], mods[1:])
     for label, hw in (("coarse s1 560^2 C24 x9", 560), ("upsample s1 864^2 C24 x9", 864)):
         x = rn(2, hw, hw, 24)
-        nbytes, nops = refiner_cost(x, blocks)
+        nbytes, pw_ops, dw_ops = refiner_cost(x, blocks)
         out.append(Case("fused_refiner_stack", label,
                         lambda x=x: ops.fused_refiner_stack(x, blocks),
-                        lambda x=x: ops.refiner_stack_reference(x, blocks), bytes=nbytes, ops=nops))
+                        lambda x=x: ops.refiner_stack_reference(x, blocks), bytes=nbytes, ops=pw_ops,
+                        peak=PEAK_BF16_TENSOR if dt == torch.bfloat16 else PEAK_F32, f32_ops=dw_ops,
+                        stack=(lambda x=x: model_stack(x, mods)) if dt == torch.bfloat16 else None,
+                        planted=lambda x=x: refiner_edge_clamped(x, blocks)))
     return out
 
 
 def check_output(name, label, dt, k, p, what: str = "") -> float:
     """Hold one kernel output to its plain version with the tolerances
-    above (the bf16 attention kernels to ATTN_ULPS too); print the
+    above (the kernels of ULP_BARS to their bf16 ulp bar too); print the
     comparison and return the error."""
     import torch
 
-    torch.cuda.synchronize()
+    if k.is_cuda:
+        torch.cuda.synchronize()
     k, p = k.float(), p.float()
     require(k.shape == p.shape, f"{name} {label}: shape {tuple(k.shape)} vs {tuple(p.shape)}")
     require(bool(torch.isfinite(k).all()), f"{name} {label}: non-finite kernel output")
     err, scale = (k - p).abs().max().item(), p.abs().max().item()
     tol = F32_REL * max(1.0, scale) if dt == torch.float32 else BF16_REL * scale + BF16_ABS
     ulps = ""
-    if dt == torch.bfloat16 and name in ATTENTION_KERNELS:
-        tol = min(tol, ATTN_ULPS * bf16_ulp(scale))
+    if dt == torch.bfloat16 and name in ULP_BARS:
+        tol = min(tol, ULP_BARS[name] * bf16_ulp(scale))
         ulps = f", {err / bf16_ulp(scale):.2f} ulp" if scale > 0 else ""
     print(f"{name:24s} {label:30s} {str(dt)[6:]:8s} {what}max|k-p| {err:.3e}{ulps} "
           f"(tol {tol:.3e}, max|p| {scale:.3g})", flush=True)
@@ -420,15 +484,17 @@ def check_output(name, label, dt, k, p, what: str = "") -> float:
     return err
 
 
-def check_power(name, label, what, ref, wrong):
-    """The bf16 attention bar must be able to fail a kernel: the plain
-    version with the softmax scale off by 2% (``wrong``) must move by more
-    than ATTN_ULPS ulps of the largest reference value."""
+def check_power(name, label, what, ref, wrong, fault: str = "softmax scale x1.02"):
+    """A bf16 ulp bar must be able to fail its kernel: the plain version
+    with one planted fault (``wrong``: for attention the softmax scale off
+    by 2%, else FAULTS[name]) must move by more than ULP_BARS[name] ulps of
+    the largest reference value."""
+    n = ULP_BARS[name]
     moved = (wrong.float() - ref.float()).abs().max().item()
-    bar = ATTN_ULPS * bf16_ulp(ref.float().abs().max().item())
-    print(f"{name:24s} {label:30s} bf16     {what}softmax scale x1.02 moves the plain version "
-          f"{moved:.3e} ({moved / bar * ATTN_ULPS:.1f} ulp, bar {ATTN_ULPS})", flush=True)
-    require(moved > bar, f"{name} {label} {what}: the bar would pass a 2% softmax-scale error")
+    bar = n * bf16_ulp(ref.float().abs().max().item())
+    print(f"{name:24s} {label:30s} bf16     {what}{fault} moves the plain version "
+          f"{moved:.3e} ({moved / bar * n:.1f} ulp, bar {n})", flush=True)
+    require(moved > bar, f"{name} {label} {what}: the bar would pass a planted fault ({fault})")
 
 
 def record(r, err, case: Case, dtype: str = "bf16"):
@@ -453,6 +519,12 @@ def record(r, err, case: Case, dtype: str = "bf16"):
         r["library_device_ms"] = (r["library_device_ms"] or 0.0) + ldms
     r["max_abs_err"] = max(r["max_abs_err"], err)
     lib = f"  library {lms:.4f} ms (device {ldms:.4f}, {lhow})" if lms is not None else ""
+    if case.stack:
+        sms = cuda_ms(case.stack)
+        sdms, _ = device_ms(case.stack, sms)
+        r["stack_ms"] = r.get("stack_ms", 0.0) + sms
+        r["stack_device_ms"] = r.get("stack_device_ms", 0.0) + sdms
+        lib += f"  cuDNN stack {sms:.4f} ms (device {sdms:.4f}, graph)"
     rate = ""
     if case.name in ATTENTION_KERNELS:  # achieved rate at the bound's operations
         rate = f"  {case.ops / dms / 1e9:.1f} TFLOP/s" + (f" (library {case.ops / ldms / 1e9:.1f})" if ldms else "")
@@ -469,9 +541,61 @@ def check_kernels(results):
     for dt in (torch.float32, torch.bfloat16):
         for case in kernel_cases(gen, dt):
             rows = case.rows
-            err = check_output(case.name, case.label, dt, case.kern()[:, :rows], case.plain()[:, :rows])
+            ref = case.plain()[:, :rows]
+            err = check_output(case.name, case.label, dt, case.kern()[:, :rows], ref)
             if dt == torch.bfloat16:
+                if case.planted:
+                    check_power(case.name, case.label, "", ref, case.planted(), FAULTS[case.name])
                 record(results[case.name], err, case)
+            del ref
+        torch.cuda.empty_cache()
+
+
+# Kernels D and B off the main path's shapes, (B, H, W, C, K) and
+# (B, H, W, C, r): D's generic instantiation (C, K other than 24, 5) and the
+# 24, 5 one on ragged tiles; B's scalar path (a row not a whole number of
+# 16-byte vectors), its vector paths with idle lanes (C = 16, 64) and every
+# radius the models use
+D_EDGES = ((1, 37, 45, 24, 5), (2, 19, 70, 16, 3), (1, 33, 31, 32, 7), (1, 8, 9, 5, 1))
+B_EDGES = ((1, 23, 29, 256, 0), (1, 17, 21, 512, 7), (2, 20, 24, 64, 3), (1, 15, 33, 16, 2),
+           (1, 19, 17, 20, 1), (2, 12, 40, 256, 2))
+
+
+def check_match_edges():
+    """Kernels D and B at D_EDGES and B_EDGES against their plain versions
+    (B under a smooth warp with an off-image band and under a wild one), f32
+    and bf16, and their vector paths refusing a base off 16 bytes."""
+    import torch
+
+    from roma_tpu_torch import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for dt in (torch.float32, torch.bfloat16):
+        rn = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dt)
+        for b, h, w, c, k in D_EDGES:
+            blocks, x = refiner_blocks(gen, c, 3, k), rn(b, h, w, c)
+            check_output("fused_refiner_stack", f"edge {b}x{h}x{w} C{c} K{k} x3", dt,
+                         ops.fused_refiner_stack(x, blocks), ops.refiner_stack_reference(x, blocks))
+        for b, h, w, c, r in B_EDGES:
+            f0, f1 = rn(b, h, w, c), rn(b, h, w, c)
+            for kind, flow in (("smooth", smooth_flow(gen, b, h, w)),
+                               ("wild", 2.5 * torch.randn(b, h, w, 2, generator=gen, device="cuda"))):
+                check_output("local_correlation", f"edge {b}x{h}x{w} C{c} r{r} {kind}", dt,
+                             ops.local_correlation(f0, f1, r, flow), ops.local_correlation_reference(f0, f1, r, flow))
+    flat = torch.zeros(2 * 16 * 16 * 256 + 8, dtype=torch.bfloat16, device="cuda")
+    off = flat[1:1 + 16 * 16 * 256].view(1, 16, 16, 256)
+    fine = torch.zeros(1, 16, 16, 256, dtype=torch.bfloat16, device="cuda")
+    xoff = flat[1:1 + 16 * 16 * 24].view(1, 16, 16, 24)
+    for what, call in (("fused_refiner_stack, x base + 2 bytes",
+                        lambda: ops.fused_refiner_stack(xoff, refiner_blocks(gen, 24, 1))),
+                       ("local_correlation, f1 base + 2 bytes",
+                        lambda: ops.local_correlation(fine, off, 2, torch.zeros(1, 16, 16, 2, device="cuda")))):
+        try:
+            call()
+        except ValueError as e:
+            print(f"misaligned view refused: {what}: {e}", flush=True)
+        else:
+            raise SmokeFailure(f"misaligned view accepted: {what}")
 
 
 # the attention shapes of the training step and the match: the decoder's,
@@ -1176,9 +1300,10 @@ def check_window_kernels(results):
         for hw in (560, 864):
             label = f"s1 {hw}^2 C24 x9"
             x = torch.randn(2, hw, hw, 24, generator=gen, device="cuda").to(dt)
-            nbytes, nops = refiner_cost(x, blocks)
+            nbytes, pw_ops, dw_ops = refiner_cost(x, blocks)  # H's products are all f32 on the CUDA cores
             case = Case("fused_refiner_stack_packed", label, lambda x=x: ops.fused_refiner_stack_packed(x, blocks),
-                        lambda x=x: ops.refiner_stack_reference(x, blocks), bytes=nbytes, ops=nops)
+                        lambda x=x: ops.refiner_stack_reference(x, blocks), bytes=nbytes, ops=pw_ops,
+                        f32_ops=dw_ops)
             got = case.kern()
             err = check_output(case.name, label, dt, got, case.plain())
             check_output(case.name, label, dt, got, ops.fused_refiner_stack(x, blocks), "vs Kernel D ")
@@ -1469,6 +1594,7 @@ def main(argv=None) -> int:
 
     results = new_results()
     check_kernels(results)
+    check_match_edges()
     check_attention_kernels(results)
     check_attention_edges()
     check_window_kernels(results)

@@ -38,7 +38,7 @@ P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "roma_attention_fwd": [P, P, P, P, P, I, I, I, I, I, L, L, L, L, L, L, I, P],
     "roma_attention_bwd": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, L, L, L, L, L, L, I, P],
-    "roma_local_corr": [P, P, P, P, I, I, I, I, I, I, P],
+    "roma_local_corr": [P, P, P, P, I, I, I, I, I, I, I, P],
     "roma_warp_sample": [P, P, P, I, I, I, I, I, I, I, P],
     "roma_refiner_block": [P, P, P, P, P, P, I, I, I, I, I, I, P],
     "roma_compact_miss": [P, P, I, I, I, P],

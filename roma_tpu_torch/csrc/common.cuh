@@ -25,6 +25,24 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
 
+// the f32 values of a 16-byte vector of 8 bf16 or 4 f32 (the last argument
+// picks the element type)
+__device__ __forceinline__ void unpack16(const uint4& r, float (&f)[8], __nv_bfloat16) {
+  const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void unpack16(const uint4& r, float (&f)[4], float) {
+  f[0] = __uint_as_float(r.x);
+  f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z);
+  f[3] = __uint_as_float(r.w);
+}
+
 // batch, head and row strides (in elements) of a (B, H, N, D) view whose
 // last dim is contiguous
 struct Strides {

@@ -127,6 +127,22 @@ class ConvRefiner(nn.Module):
         )
         self.out_conv = nn.Conv2d(spec.hidden_dim, 3, 1)
         self.disp_emb = nn.Conv2d(2, spec.disp_emb_dim, 1)
+        self._folded = (None, None)  # (key, folded blocks) for Kernel D
+
+    def folded_blocks(self) -> list[dict]:
+        """The blocks folded for Kernel D (fold_refiner), folded again only
+        when a source tensor changed: the cache is keyed on each parameter's
+        and running statistic's (data_ptr, _version, dtype), so copy_,
+        load_state_dict, a training step and set_precision all refold. The
+        fold runs outside inference mode, since match() runs under
+        torch.inference_mode and an inference tensor could not be used later
+        where autograd is on."""
+        srcs = [t for seq in (self.block1, *self.hidden_blocks) for t in (*seq.parameters(), *seq.buffers())]
+        key = tuple((t.data_ptr(), t._version, t.dtype) for t in srcs)
+        if self._folded[0] != key:
+            with torch.inference_mode(False), torch.no_grad():
+                self._folded = (key, fold_refiner(self.block1, self.hidden_blocks))
+        return self._folded[1]
 
     def forward(self, x, y, flow, scale_factor: float = 1.0):
         """x, y: (B, H, W, C) projected A/B features; flow (B, H, W, 2)
@@ -151,7 +167,7 @@ class ConvRefiner(nn.Module):
             parts.append(corr.to(dt))
         d = torch.cat(parts, dim=-1)
         if not self.training and s.hidden_dim <= MAX_C:
-            d = fused_refiner_stack(d, fold_refiner(self.block1, self.hidden_blocks))
+            d = fused_refiner_stack(d, self.folded_blocks())
         else:
             d = nhwc(self.block1, d)
             for blk in self.hidden_blocks:

@@ -7,11 +7,14 @@ block is a depthwise KxK conv with the BatchNorm folded in (:func:`fold_block`),
 bias, ReLU and a round to the I/O dtype, then a CxC 1x1 conv, bias and a
 round, with zero SAME padding.
 
-On the H100 Kernel D (csrc/refiner_stack.cu) runs once per folded block;
-Kernel H (csrc/refiner_chain.cu, :func:`fused_refiner_stack_packed`) runs a
-group of blocks per launch, as roma_tpu/ops/pallas_refiner.py's packed
-kernel does. Their design notes are in the sources. A CPU tensor takes the
-plain version :func:`refiner_stack_reference`, the function of both.
+On the H100 Kernel D (csrc/refiner_stack.cu) runs once per folded block,
+register-blocked with its pointwise product on the tensor cores in bf16 at
+C = 24, K = 5 (the scale-1 stack), one thread per pixel at any other C <= 32
+and odd K; :func:`stack_checks` holds its argument contract. Kernel H
+(csrc/refiner_chain.cu, :func:`fused_refiner_stack_packed`) runs a group of
+blocks per launch, as roma_tpu/ops/pallas_refiner.py's packed kernel does.
+Their design notes are in the sources. A CPU tensor takes the plain version
+:func:`refiner_stack_reference`, the function of both.
 """
 from __future__ import annotations
 
@@ -68,30 +71,61 @@ def refiner_stack_reference(x: torch.Tensor, blocks: list[dict], round_w2: bool 
     return y.permute(0, 2, 3, 1)
 
 
+VEC_C, VEC_K = 24, 5  # Kernel D's register-blocked, tensor-core instantiation
+_WEIGHTS = ("dw", "db", "w2", "b2")
+
+
+def stack_checks(what, x, blocks):
+    """Kernel D's argument contract, in one pass, before any launch: x
+    (B, H, W, C) of a supported dtype (TypeError otherwise), 1 <= C <=
+    MAX_C; every folded block float32 dw (K, K, C) with K odd, db (C,),
+    w2 (C, C), b2 (C,); every tensor contiguous and on x's device
+    (ValueError); x not requiring a gradient (RuntimeError). Picks each
+    block's instantiation: "c24k5" for C = VEC_C and K = VEC_K, whose
+    16-byte loads need x's base 16-byte aligned (ValueError), else
+    "generic". Returns (B, H, W, C, [(K, instantiation) a block])."""
+    _ext.dtype_code(x, what)
+    b, h, w, c = x.shape
+    if not 1 <= c <= MAX_C:
+        raise ValueError(f"{what}: C={c} outside the kernel's 1..{MAX_C}")
+    dev = x.device
+    plan = []
+    for i, blk in enumerate(blocks):
+        ws = [blk[n] for n in _WEIGHTS]
+        k = ws[0].shape[0]
+        shapes = [tuple(t.shape) for t in ws]
+        if (any(t.dtype != torch.float32 for t in ws) or shapes != [(k, k, c), (c,), (c, c), (c,)]
+                or k % 2 == 0):
+            raise ValueError(f"{what}: folded block {i} must be float32 dw (K, K, C) with K odd, db (C,), "
+                             f"w2 (C, C), b2 (C,); got {shapes}")
+        if not all(t.is_contiguous() and t.device == dev for t in ws):
+            raise ValueError(f"{what}: folded block {i} must be contiguous and on x's device {dev}")
+        plan.append((k, "c24k5" if (c, k) == (VEC_C, VEC_K) else "generic"))
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: x must be contiguous")
+    if x.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(f"{what}: forward-only kernel, no backward")
+    if any(p == "c24k5" for _, p in plan) and x.data_ptr() % 16:
+        raise ValueError(f"{what}: the C={VEC_C}, K={VEC_K} instantiation loads x by 16-byte vectors and needs "
+                         f"its base 16-byte aligned, got address {x.data_ptr()} % 16 = {x.data_ptr() % 16}")
+    return b, h, w, c, plan
+
+
 def fused_refiner_stack(x: torch.Tensor, blocks: list[dict]) -> torch.Tensor:
     """Run a chain of folded refiner blocks on x (B, H, W, C), C <= 32 on CUDA."""
     if x.device.type == "cpu":
         return refiner_stack_reference(x, blocks)
     what = "fused_refiner_stack"
-    _ext.require_cuda(what, x)
-    b, h, w, c = x.shape
-    if c > MAX_C:
-        raise ValueError(f"{what}: C={c} above the kernel's {MAX_C}")
+    if not x.is_cuda:
+        raise ValueError(f"{what}: tensors must be on a CUDA device or the CPU, got {x.device}")
+    b, h, w, c, plan = stack_checks(what, x, blocks)
     code = _ext.dtype_code(x, what)
-    lib = _ext.lib()
-    bufs = [torch.empty_like(x), torch.empty_like(x)]
-    for i, blk in enumerate(blocks):
-        k = blk["dw"].shape[0]
-        ws = [blk[n] for n in ("dw", "db", "w2", "b2")]
-        _ext.require_cuda(what, x, *ws)
-        shapes = [tuple(t.shape) for t in ws]
-        if any(t.dtype != torch.float32 for t in ws) or shapes != [(k, k, c), (c,), (c, c), (c,)]:
-            raise ValueError(f"{what}: folded block {i} must be float32 dw (K, K, C), db (C,), "
-                             f"w2 (C, C), b2 (C,); got {shapes}")
+    launch = _ext.lib().roma_refiner_block
+    bufs = [torch.empty_like(x), torch.empty_like(x)]  # fresh allocations: 16-byte aligned
+    for i, (blk, (k, _)) in enumerate(zip(blocks, plan)):
         out = bufs[i % 2]
-        rc = lib.roma_refiner_block(
-            x.data_ptr(), *(t.data_ptr() for t in ws), out.data_ptr(), b, h, w, c, k, code, _ext.stream()
-        )
+        rc = launch(x.data_ptr(), *(blk[n].data_ptr() for n in _WEIGHTS), out.data_ptr(), b, h, w, c, k, code,
+                    _ext.stream())
         _ext.check(rc, what)
         fused_refiner_stack.launches += 1
         x = out

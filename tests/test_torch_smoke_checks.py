@@ -1,6 +1,7 @@
 """The card run's own checks, on the CPU: chip_smoke.py's spill gate on a
-ptxas report, the bf16 ulp its attention bar counts in, and where the build
-keeps the report it reads."""
+ptxas report, the bf16 ulp its bars count in, the planted faults of Kernels
+D and B's plain versions breaking their ulp bar, and where the build keeps
+the report it reads."""
 import os
 import sys
 
@@ -9,7 +10,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
-from roma_tpu_torch import _ext  # noqa: E402
+from roma_tpu_torch import _ext, ops  # noqa: E402
 
 TC_KERNELS = [(kind, d) for kind in ("fwd", "bwd_dq", "bwd_dkv") for d in (64, 128)]
 
@@ -61,3 +62,49 @@ def test_ptxas_report_sits_beside_the_library():
     lib = _ext.library_path()
     rep = _ext.ptxas_path(lib)
     assert rep.parent == lib.parent and rep.name.startswith(lib.stem) and rep != lib
+
+
+def _planted_cases():
+    """(name, plain output, planted-fault output) of Kernels D and B at a
+    small shape in bf16, on the CPU, drawn as chip_smoke.py draws them."""
+    gen = torch.Generator().manual_seed(3)
+    rn = lambda *s: torch.randn(*s, generator=gen).to(torch.bfloat16)
+    blocks = chip_smoke.refiner_blocks(gen, device="cpu")
+    x = rn(2, 20, 22, 24)
+    out = [("fused_refiner_stack", ops.refiner_stack_reference(x, blocks), chip_smoke.refiner_edge_clamped(x, blocks))]
+    for r in (2, 3, 7):
+        f0, f1 = rn(2, 18, 17, 64), rn(2, 18, 17, 64)
+        ys, xs = torch.meshgrid(torch.linspace(-1, 1, 18), torch.linspace(-1, 1, 17), indexing="ij")
+        warp = torch.stack((xs, ys), -1)[None] + 0.05 * torch.randn(2, 18, 17, 2, generator=gen)
+        out.append(("local_correlation", ops.local_correlation_reference(f0, f1, r, warp),
+                    chip_smoke.corr_fractions_swapped(f0, f1, r, warp)))
+    return out
+
+
+@pytest.mark.parametrize("i", range(4))
+def test_planted_faults_break_the_ulp_bar(i, capsys):
+    name, ref, wrong = _planted_cases()[i]
+    chip_smoke.check_power(name, "cpu", "", ref, wrong, chip_smoke.FAULTS[name])
+    assert f"bar {chip_smoke.ULP_BARS[name]}" in capsys.readouterr().out
+    with pytest.raises(chip_smoke.SmokeFailure, match="disagrees"):
+        chip_smoke.check_output(name, "cpu", torch.bfloat16, wrong, ref)
+    chip_smoke.check_output(name, "cpu", torch.bfloat16, ref.clone(), ref)
+
+
+def test_check_power_fails_a_fault_that_moves_nothing():
+    name, ref, _ = _planted_cases()[0]
+    with pytest.raises(chip_smoke.SmokeFailure, match="planted fault"):
+        chip_smoke.check_power(name, "cpu", "", ref, ref.clone(), chip_smoke.FAULTS[name])
+
+
+def test_the_ulp_bar_is_held_only_in_bf16():
+    """float32 outputs keep F32_REL; a bf16 output one bar past the plain
+    version fails, one ulp past it passes."""
+    name, ref, _ = _planted_cases()[1]
+    ulp = chip_smoke.bf16_ulp(ref.float().abs().max().item())
+    bump = torch.zeros_like(ref, dtype=torch.float32)
+    bump.view(-1)[0] = (chip_smoke.ULP_BARS[name] + 1) * ulp
+    with pytest.raises(chip_smoke.SmokeFailure):
+        chip_smoke.check_output(name, "cpu", torch.bfloat16, ref.float() + bump, ref)
+    chip_smoke.check_output(name, "cpu", torch.bfloat16, ref.float() + bump / (chip_smoke.ULP_BARS[name] + 1), ref)
+    chip_smoke.check_output(name, "cpu", torch.float32, ref.float() + 1e-5, ref.float())
