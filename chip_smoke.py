@@ -12,12 +12,14 @@
    also get a device time: calls captured in a CUDA graph and replayed
    between one pair of events (device_ms; see device_ms()). Kernel D is
    timed beside the model's eager cuDNN stack on the modules its blocks are
-   folded from (stack_ms, stack_device_ms). In bf16, A, B, D and E are also
-   held to ULP_BARS, and for B and D a planted fault in the plain version
-   must break that bar (check_power). Right after, check_match_edges holds
-   D and B off the main path's shapes: D's generic instantiation and ragged
-   tiles, B's scalar path, idle lanes and every radius, and their vector
-   paths refusing a base off 16 bytes.
+   folded from (stack_ms, stack_device_ms). Kernel C must give its plain
+   version's bits (check_bits, bf16 and f32). In bf16, A, B, C, D and E are
+   also held to ULP_BARS, and for B, C and D a planted fault in the plain
+   version must break that bar (check_power). Right after, check_match_edges
+   holds D, B and C off the main path's shapes: D's generic instantiation
+   and ragged tiles, B's scalar path, idle lanes and every radius, C's three
+   paths at other widths on a rectangular query grid under a flow far off
+   the image (bitwise), and their vector paths refusing a misaligned base.
 3. Checks the whole match on a small configuration: the kernel path on the
    card against the plain path on the CPU, same weights, float32; once with
    the defaults and once non-symmetric and coarse-only.
@@ -53,8 +55,11 @@
 9. Right after 8, checks Kernels I and J (the wide-C refiner blocks)
    against wide_refiner_stack_reference at the seven shapes the 560 -> 864
    match gives the wide-C stacks (B = 2, 9 blocks folded from refiner_block
-   modules, bf16 and f32) and times them beside the plain version and the
-   model's own cuDNN block stack on the same modules; then Kernel K's two
+   modules, bf16 and f32; J in bf16 also to its ulp bar, with a planted
+   fault) and times them beside the plain version and, for J, the model's
+   own cuDNN block stack on the same modules (call and device time); then
+   check_wide_edges holds J at other widths and sizes (J_EDGES) and refuses
+   a misaligned view; then Kernel K's two
    entries and Kernel L against their plain versions at
    tools/bench_onehot_dots.py's sizes. After 8's caller run, drives
    lane_refiner_stack, hcw_refiner_stack and the port tools' e1 / e2 once
@@ -128,8 +133,18 @@ LOGIT_STD = 2.0
 # versions by 125 ulps or more.
 D_ULPS = 4
 B_ULPS = 4
+# Kernel C is held to its plain version's bits (check_bits); its ulp bar is
+# there so that check_power shows the comparison can fail. Kernel J rounds
+# where its plain version rounds (t, w2 and each block's output), so only f32
+# summation orders differ, as for D: the PR 7 kernel measured 1.4 to 2 ulps
+# at WIDE_SHAPES on an H100, the planted fault 121 or more (PERF.md, PR 8).
+C_ULPS = 4
+J_ULPS = 4
 ULP_BARS = {"fused_attention_packed": ATTN_ULPS, "fused_attention": ATTN_ULPS,
-            "fused_attention_backward": ATTN_ULPS, "fused_refiner_stack": D_ULPS, "local_correlation": B_ULPS}
+            "fused_attention_backward": ATTN_ULPS, "fused_refiner_stack": D_ULPS, "local_correlation": B_ULPS,
+            "warp_sample": C_ULPS, "hcw_refiner_block": J_ULPS}
+# the kernels of kernel_cases held to their plain version bit for bit
+BITWISE = ("warp_sample",)
 
 KERNEL_INFO = {
     "fused_attention_packed": ("roma_tpu_torch/csrc/attention.cu", "roma_tpu/ops/pallas_attention.py:259"),
@@ -358,9 +373,10 @@ def refiner_cost(x, blocks):
             2 * n * npx * c * c, 2 * n * npx * k * k * c)
 
 
-def refiner_edge_clamped(x, blocks):
-    """refiner_stack_reference with one planted fault: the depthwise conv
-    pads by repeating the image's edge instead of with zeros."""
+def refiner_edge_clamped(x, blocks, round_w2=False):
+    """refiner_stack_reference (``round_w2`` as there) with one planted
+    fault: the depthwise conv pads by repeating the image's edge instead of
+    with zeros."""
     import torch
     import torch.nn.functional as F
 
@@ -371,8 +387,31 @@ def refiner_edge_clamped(x, blocks):
         t = F.conv2d(F.pad(y.float(), (p, p, p, p), mode="replicate"), blk["dw"].permute(2, 0, 1)[:, None],
                      blk["db"], groups=c)
         t = torch.relu(t).to(dt).float()
-        y = F.conv2d(t, blk["w2"].T[:, :, None, None], blk["b2"]).to(dt)
+        w2 = blk["w2"].to(dt).float() if round_w2 else blk["w2"]
+        y = F.conv2d(t, w2.T[:, :, None, None], blk["b2"]).to(dt)
     return y.permute(0, 2, 3, 1)
+
+
+def warp_fractions_swapped(y, flow):
+    """warp_sample_reference with one planted fault: the bilinear weights
+    take fx for fy and fy for fx."""
+    import torch
+
+    b, h, w, c = y.shape
+    ix = (flow[..., 0] + 1) * w / 2 - 0.5
+    iy = (flow[..., 1] + 1) * h / 2 - 0.5
+    x0f, y0f = torch.floor(ix), torch.floor(iy)
+    fy, fx = (ix - x0f)[..., None], (iy - y0f)[..., None]  # the fault
+    x0, y0 = x0f.long(), y0f.long()
+    flat = y.reshape(b * h * w, c)
+    base = torch.arange(b, device=y.device).view(b, 1, 1) * (h * w)
+    out = 0.0
+    for dy, dx, wgt in ((0, 0, (1 - fy) * (1 - fx)), (0, 1, (1 - fy) * fx),
+                        (1, 0, fy * (1 - fx)), (1, 1, fy * fx)):
+        yi, xi = y0 + dy, x0 + dx
+        valid = ((yi >= 0) & (yi < h) & (xi >= 0) & (xi < w))[..., None]
+        out = out + flat[base + yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)].float() * (wgt * valid)
+    return out.to(y.dtype)
 
 
 def corr_fractions_swapped(f0, f1, radius, warp):
@@ -386,7 +425,9 @@ def corr_fractions_swapped(f0, f1, radius, warp):
 
 # what each Case.planted plants in its plain version
 FAULTS = {"fused_refiner_stack": "edge-clamped instead of zero padding",
-          "local_correlation": "fractions fy and fx swapped"}
+          "local_correlation": "fractions fy and fx swapped",
+          "warp_sample": "fractions fy and fx swapped",
+          "hcw_refiner_block": "edge-clamped instead of zero padding"}
 
 
 def kernel_cases(gen, dt):
@@ -440,7 +481,8 @@ def kernel_cases(gen, dt):
         out.append(Case("warp_sample", label,
                         lambda y=y, w=w: ops.warp_sample(y, w),
                         lambda y=y, w=w: ops.warp_sample_reference(y, w),
-                        bytes=npx * (2 * c * es + 8), ops=8 * npx * c, library=grid_sample_library(y, w)))
+                        bytes=npx * (2 * c * es + 8), ops=8 * npx * c, library=grid_sample_library(y, w),
+                        planted=lambda y=y, w=w: warp_fractions_swapped(y, w)))
     # Kernel D: the scale-1 refiner stack, 9 blocks of C = 24 folded from
     # eval-mode refiner_block modules, beside those modules' cuDNN stack as
     # the match runs a stack wider than 32 (bf16 modules, as under amp); the
@@ -542,7 +584,8 @@ def check_kernels(results):
         for case in kernel_cases(gen, dt):
             rows = case.rows
             ref = case.plain()[:, :rows]
-            err = check_output(case.name, case.label, dt, case.kern()[:, :rows], ref)
+            check = check_bits if case.name in BITWISE else check_output
+            err = check(case.name, case.label, dt, case.kern()[:, :rows], ref)
             if dt == torch.bfloat16:
                 if case.planted:
                     check_power(case.name, case.label, "", ref, case.planted(), FAULTS[case.name])
@@ -559,15 +602,33 @@ def check_kernels(results):
 D_EDGES = ((1, 37, 45, 24, 5), (2, 19, 70, 16, 3), (1, 33, 31, 32, 7), (1, 8, 9, 5, 1))
 B_EDGES = ((1, 23, 29, 256, 0), (1, 17, 21, 512, 7), (2, 20, 24, 64, 3), (1, 15, 33, 16, 2),
            (1, 19, 17, 20, 1), (2, 12, 40, 256, 2))
+# Kernel C off the main path's widths, C -> the path it takes in f32 and
+# bf16, on a 37 x 45 map sampled at a 29 x 53 query grid
+C_EDGES = {3: "registers", 5: "registers", 16: "vector", 24: "vector", 37: "scalar"}
+
+
+def far_flow(gen, b, h, w):
+    """smooth_flow with a third of the queries thrown far off the image
+    (|x| up to ~1e4) and a row on each border of [-1, 1]."""
+    import torch
+
+    f = smooth_flow(gen, b, h, w)
+    far = torch.rand(b, h, w, 1, generator=gen, device="cuda") < 0.33
+    f = torch.where(far, 3e3 * torch.randn(b, h, w, 2, generator=gen, device="cuda"), f)
+    f[:, 0, :, 1], f[:, -1, :, 1] = -1.0, 1.0
+    return f.contiguous()
 
 
 def check_match_edges():
     """Kernels D and B at D_EDGES and B_EDGES against their plain versions
     (B under a smooth warp with an off-image band and under a wild one), f32
-    and bf16, and their vector paths refusing a base off 16 bytes."""
+    and bf16; Kernel C at C_EDGES bitwise, under a smooth flow and a far
+    one, each width's path asserted; and their vector paths refusing a base
+    off 16 bytes (C's registers path one off a pair of elements)."""
     import torch
 
     from roma_tpu_torch import ops
+    from roma_tpu_torch.ops.warp_sample import warp_sample_checks
 
     gen = torch.Generator(device="cuda").manual_seed(10)
     for dt in (torch.float32, torch.bfloat16):
@@ -582,14 +643,24 @@ def check_match_edges():
                                ("wild", 2.5 * torch.randn(b, h, w, 2, generator=gen, device="cuda"))):
                 check_output("local_correlation", f"edge {b}x{h}x{w} C{c} r{r} {kind}", dt,
                              ops.local_correlation(f0, f1, r, flow), ops.local_correlation_reference(f0, f1, r, flow))
+        for c, want in C_EDGES.items():
+            y = rn(2, 37, 45, c)
+            path = warp_sample_checks("warp_sample", y, smooth_flow(gen, 2, 29, 53))[-1]
+            require(path == want, f"warp_sample C{c} {dt}: path {path}, not {want}")
+            for kind, flow in (("smooth", smooth_flow(gen, 2, 29, 53)), ("far", far_flow(gen, 2, 29, 53))):
+                check_bits("warp_sample", f"edge 2x37x45 C{c} q29x53 {kind} {path}", dt, ops.warp_sample(y, flow),
+                           ops.warp_sample_reference(y, flow))
     flat = torch.zeros(2 * 16 * 16 * 256 + 8, dtype=torch.bfloat16, device="cuda")
     off = flat[1:1 + 16 * 16 * 256].view(1, 16, 16, 256)
     fine = torch.zeros(1, 16, 16, 256, dtype=torch.bfloat16, device="cuda")
     xoff = flat[1:1 + 16 * 16 * 24].view(1, 16, 16, 24)
+    yoff = flat[1:1 + 16 * 16 * 9].view(1, 16, 16, 9)
+    grid = torch.zeros(1, 16, 16, 2, device="cuda")
     for what, call in (("fused_refiner_stack, x base + 2 bytes",
                         lambda: ops.fused_refiner_stack(xoff, refiner_blocks(gen, 24, 1))),
-                       ("local_correlation, f1 base + 2 bytes",
-                        lambda: ops.local_correlation(fine, off, 2, torch.zeros(1, 16, 16, 2, device="cuda")))):
+                       ("local_correlation, f1 base + 2 bytes", lambda: ops.local_correlation(fine, off, 2, grid)),
+                       ("warp_sample C256 (vector), y base + 2 bytes", lambda: ops.warp_sample(off, grid)),
+                       ("warp_sample C9 (registers), y base + 2 bytes", lambda: ops.warp_sample(yoff, grid))):
         try:
             call()
         except ValueError as e:
@@ -889,9 +960,10 @@ def synthetic_train_batch(b: int, hw: int, seed: int, device):
 
 
 # the port's CUDA kernels by their __global__ function's name, for --profile
-PORT_KERNEL_NAMES = (("attn_fwd", "A"), ("attn_bwd", "E"), ("local_corr", "B"), ("warp_sample", "C"),
-                     ("refiner_block", "D"), ("refiner_chain", "H"), ("window_warp", "G"),
-                     ("compact_miss", "F"), ("wide_block", "I/J"), ("onehot_dot", "K"), ("window_sum", "L"))
+PORT_KERNEL_NAMES = (("attn_fwd", "A"), ("attn_bwd", "E"), ("local_corr", "B"), ("warp_vec", "C"),
+                     ("warp_reg", "C"), ("warp_scalar", "C"), ("refiner_block", "D"), ("refiner_chain", "H"),
+                     ("window_warp", "G"), ("compact_miss", "F"), ("wide_block", "I/J"), ("hcw_tc", "J"),
+                     ("onehot_dot", "K"), ("window_sum", "L"))
 
 
 def traced(what: str, fn, top: int = 12):
@@ -1423,10 +1495,11 @@ def wide_cost(x, blocks, dt):
 
 def check_wide_kernels(results):
     """Kernels I and J against wide_refiner_stack_reference at WIDE_SHAPES
-    (B = 2, 9 blocks folded from refiner_block modules), bf16 and f32; the
-    bf16 times beside the model's cuDNN block stack on the same modules. J
-    runs on the (B, H, C, W) copy of the input, made outside the timed
-    window."""
+    (B = 2, 9 blocks folded from refiner_block modules), bf16 and f32; J in
+    bf16 also to J_ULPS with its planted fault (check_power), and timed
+    beside the model's cuDNN block stack on the same modules (stack_ms,
+    stack_device_ms of its row). J runs on the (B, H, C, W) copy of the
+    input, made outside the timed window."""
     import torch
 
     from roma_tpu_torch import ops
@@ -1452,18 +1525,56 @@ def check_wide_kernels(results):
                           f32_ops=dw_ops),
                      Case("hcw_refiner_block", label, lambda: chain(ops.hcw_refiner_block, xt),
                           lambda: ops.wide_refiner_stack_reference(x, blocks).permute(0, 1, 3, 2),
-                          bytes=nbytes, ops=nops, peak=peak, f32_ops=dw_ops))
+                          bytes=nbytes, ops=nops, peak=peak, f32_ops=dw_ops,
+                          stack=(lambda: model_stack(x, mods).permute(0, 1, 3, 2)) if dt == torch.bfloat16 else None,
+                          planted=lambda: refiner_edge_clamped(x, blocks, round_w2=True).permute(0, 1, 3, 2)))
             for case in cases:
-                err = check_output(case.name, label, dt, case.kern(), case.plain())
+                ref = case.plain()
+                err = check_output(case.name, label, dt, case.kern(), ref)
                 if dt == torch.bfloat16:
-                    record(results[case.name], err, case)
-            if dt == torch.bfloat16:
-                with torch.no_grad():
-                    ms = cuda_ms(lambda: model_stack(x, mods))
-                print(f"{'':26s} {label:30s} bf16     model cuDNN block stack {ms:.4f} ms", flush=True)
+                    if case.planted:
+                        check_power(case.name, label, "", ref, case.planted(), FAULTS[case.name])
+                    with torch.no_grad():
+                        record(results[case.name], err, case)
+                del ref
             del x, xt
         del mods, blocks
         torch.cuda.empty_cache()
+
+
+# Kernel J off WIDE_SHAPES, (B, H, W, C): each released width at a small
+# size, C = 37 (not a multiple of 8), H < 5 (every staged row partly off the
+# image), B = 1, widths that are not a multiple of the block's 32 or 64
+# columns, odd and even (the staging by plain loads and by element pairs)
+J_EDGES = ((1, 9, 45, 37), (2, 3, 70, 144), (1, 4, 35, 1377), (1, 6, 33, 569), (1, 5, 100, 1137),
+           (2, 7, 8, 569))
+
+
+def check_wide_edges():
+    """Kernel J at J_EDGES against its plain version (3 folded blocks), f32
+    and bf16 (bf16 to J_ULPS), and its bf16 path refusing a base off 8 bytes
+    at a width that is a multiple of 4."""
+    import torch
+
+    from roma_tpu_torch import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for b, h, w, c in J_EDGES:
+        blocks = refiner_blocks(gen, c, 3)
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(b, h, w, c, generator=gen, device="cuda").to(dt)
+            y = x.permute(0, 1, 3, 2).contiguous()
+            for blk in blocks:
+                y = ops.hcw_refiner_block(y, blk)
+            check_output("hcw_refiner_block", f"edge {b}x{h}x{w} C{c} x3", dt, y.permute(0, 1, 3, 2),
+                         ops.wide_refiner_stack_reference(x, blocks))
+    flat = torch.zeros(2 * 8 * 144 * 16 + 8, dtype=torch.bfloat16, device="cuda")
+    try:
+        ops.hcw_refiner_block(flat[2:2 + 8 * 144 * 16].view(1, 8, 144, 16), refiner_blocks(gen, 144, 1)[0])
+    except ValueError as e:
+        print(f"misaligned view refused: hcw_refiner_block, x base + 4 bytes: {e}", flush=True)
+    else:
+        raise SmokeFailure("misaligned view accepted: hcw_refiner_block, x base + 4 bytes")
 
 
 def check_onehot_kernels(results):
@@ -1600,6 +1711,7 @@ def main(argv=None) -> int:
     check_window_kernels(results)
     check_window_edges()
     check_wide_kernels(results)
+    check_wide_edges()
     check_onehot_kernels(results)
     check_small_match()
 

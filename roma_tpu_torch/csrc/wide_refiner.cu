@@ -16,30 +16,65 @@
 // 1137, bytes bound C = 144, C = 569 sits at the ridge. In f32 the product
 // runs on the CUDA cores (as on the TPU, f32 x f32) and bounds every width.
 //
-// Design: a block owns an 8x8 pixel tile and TN output channels, and walks
-// the input channels in steps of 32. Each step stages the step's 12x12 halo
-// as f32 in shared memory (the loop runs along the layout's contiguous dim:
-// channels for I, columns for J), computes depthwise + ReLU for the tile (one
-// thread per tile row and channel, the 12 halo values of a row in
-// registers), stores them rounded to the I/O dtype beside the step's slice of
-// w2, and adds the 64 x TN product into registers: in f32 on the CUDA cores
-// (TN = 64, a 4x4 tile a thread), in bf16 on the tensor cores with mma.sync
-// m16n8k16 and f32 accumulation (TN = 128, a 32x32 tile a warp). Both operands
-// are then exactly the rounded values above, so the tensor-core products are
-// exact and only the summation order differs from the TPU's.
+// The 8x8-tile kernel (Kernel I in both dtypes, Kernel J in f32): a block
+// owns an 8x8 pixel tile and TN output channels, and walks the input
+// channels in steps of 32. Each step stages the step's 12x12 halo as f32 in
+// shared memory (the loop runs along the layout's contiguous dim: channels
+// for I, columns for J), computes depthwise + ReLU for the tile (one thread
+// per tile row and channel, the 12 halo values of a row in registers),
+// stores them rounded to the I/O dtype beside the step's slice of w2, and
+// adds the 64 x TN product into registers: in f32 on the CUDA cores (TN =
+// 64, a 4x4 tile a thread), in bf16 on the tensor cores with mma.sync
+// m16n8k16 and f32 accumulation (TN = 128, a 32x32 tile a warp). Both
+// operands are then exactly the rounded values above, so the tensor-core
+// products are exact and only the summation order differs from the TPU's.
+// Its cost: a block that owns TN of the C output channels recomputes the
+// depthwise, and rereads the halo, once per TN tile, i.e. ceil(C / TN)
+// times (11x in bf16 at C = 1377), which in bf16 is most of its CUDA-core
+// work; w2 is read as f32 and rounded again by every block at every step,
+// and nothing is pipelined.
 //
-// Cost of the simple design: a block that owns TN of the C output channels
-// recomputes the depthwise, and rereads the halo, once per TN tile, i.e.
-// ceil(C / TN) times: 22x in f32 and 11x in bf16 at C = 1377, 3x and 2x at
-// C = 144. That adds 25 ceil(C / TN) / C CUDA-core MACs per product MAC: 40%
-// (f32) at C = 1377, 52% at C = 144, and in bf16 it is most of the CUDA-core
-// work beside the tensor cores. Nothing is pipelined: a step's loads,
-// depthwise and product run one after another between barriers.
+// The tensor-core kernel (Kernel J in bf16, hcw_tc_kernel) computes what
+// the TPU kernel computes: the depthwise once per pixel, then one
+// (C, C) @ (C, N) product for a block's N pixels: NR image rows of WT
+// columns, as many as t fits beside the pipelines (launch_hcw_tc: 4 x 64 at
+// C = 144, 2 x 64 at 569, 2 x 32 at 1137, 1 x 32 at 1377). The product's
+// time follows the w2 tiles a block streams (it did not move with the
+// ring's depth), so more pixels a block is fewer w2 tiles a pixel; it is
+// also more output rows for each staged input row.
+//   * Phase 1, the depthwise for all C channels of the block's pixels, once:
+//     in chunks of 1024 / WT channels, the NR + 4 input rows of each channel
+//     over WT + 4 columns (runs of 2 (WT + 4) bytes along W) are staged by a
+//     warp a row, DEPTH - 1 chunks ahead: by 8-byte cp.async copies
+//     where W % 4 == 0 (from column x0 - 4), 4-byte copies of element pairs
+//     where W is even, plain loads issued together where it is odd. A thread
+//     computes 4 columns of one channel in all NR rows (each staged row read
+//     once, for up to 5 output rows; its 25 taps and bias loaded a chunk
+//     ahead), adds the bias, ReLU, rounds to bf16 and stores t[c][pixel]
+//     into shared memory in the layout the product reads (rows padded by 16
+//     bytes for ldmatrix).
+//   * Phase 2, out[d, p] = sum_c w2r[d, c] t[c, p] on the tensor cores
+//     (mma.sync m16n8k16, f32 accumulation; t by ldmatrix.trans): 8 warps
+//     of 32 x 32 output tiles, an M-chunk of 256 / (N / 32) output channels
+//     at a time. w2r is w2^T rounded to bf16 once and kept beside the folded
+//     block (ops/wide_refiner.py:block_w2t), zero-padded, so its tiles of 64
+//     input channels (48 at C <= 336) stream through a cp.async ring of
+//     16-byte copies with no bounds; a stage's fragments are all loaded
+//     before its products. The ring and the staged chunks share one region
+//     of shared memory. The epilogue adds the bias, rounds once and stores
+//     along W (bf16 pairs for an even W; rows of the released widths 35, 70,
+//     108 and 140 do not start on 16 bytes, so no wider store). A warp skips
+//     the pixels past the image's last row and column.
+//   * A block computes every output channel of its pixels: splitting them
+//     over blocks to fill the 132 SMs at s16 (140 blocks) recomputes the
+//     depthwise a split, and measured no faster there and slower at s8.
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -255,14 +290,358 @@ __global__ void __launch_bounds__(NT) wide_block_kernel(
   });
 }
 
+// ---------------------------------------------------------------------------
+// Kernel J in bf16: the depthwise once per pixel, the product on the tensor
+// cores (see the note at the top).
+
+using tc::bf16;
+
+// buffers of each phase's cp.async pipeline (3 measured ~1.5% faster than 6)
+constexpr int DEPTH = 3;
+// the wrapper pads w2^T (out, in) with zeros to multiples of these (W2_COLS:
+// a multiple of every KC, so a w2 tile lies inside)
+constexpr int W2_ROWS = 256, W2_COLS = 192;
+
+// A block's pixels: NR image rows of WT columns, N = NR WT in all. 8 warps
+// as WM (output channels) x WN (pixels), each a 32 x 32 tile of m16n8k16
+// products; a warp's 32 pixels lie in one image row. KC input channels a w2
+// tile (a ring stage).
+template <int WT_, int NR_, int KC_>
+struct Hcw {
+  static constexpr int WT = WT_, NR = NR_, KC = KC_;
+  static constexpr int N = NR * WT;
+  static constexpr int WN = N / 32, WM = 8 / WN, MB = 32 * WM;  // MB output channels an M-chunk
+  static constexpr int DC = 1024 / WT;  // channels a depthwise chunk: a thread a (channel, 4 columns)
+  static constexpr int R = 4;           // depthwise columns a thread (all NR rows)
+  static constexpr int JN = WT / R;     // threads a channel
+  static constexpr int SR = NR + 2 * P;  // staged rows a channel
+  static constexpr int SW = WT + 8;     // a staged row: WT + 4 (or WT + 8) columns, 16-byte multiple
+  static constexpr int TS = N + 8;      // a row of t (ldmatrix: conflict-free)
+  static constexpr int RS = KC + 8;     // a row of a w2 tile
+  static constexpr int ROWS = DC * SR / (NT / 32);  // staged rows a warp
+  static constexpr int PASSES = (WT + 2 * P + 31) / 32;  // lanes' passes over a staged row of elements
+  static constexpr int STAGE = MB * RS;      // elements of a w2 tile
+  static constexpr int CHUNK = DC * SR * SW;  // elements of a staged chunk
+  static_assert(WN * WM == 8 && DC * JN == NT && W2_ROWS % MB == 0 && ROWS * (NT / 32) == DC * SR &&
+                    W2_COLS % KC == 0 && KC % 16 == 0, "tiles");
+  // t's rows: C rounded up to KC (the product's k), then to DC (phase 1)
+  __host__ __device__ static int t_rows(int C) {
+    const int kp = (C + KC - 1) / KC * KC;
+    return (kp + DC - 1) / DC * DC;
+  }
+};
+
+// the shared memory: t, then one region that holds DEPTH staged chunks in
+// phase 1 and DEPTH w2 tiles in phase 2
+template <class K>
+size_t smem_hcw(int C) {
+  return 2 * ((size_t)K::t_rows(C) * K::TS + DEPTH * std::max(K::STAGE, K::CHUNK));
+}
+
+// 8 bytes global -> shared without passing through registers; ok = false
+// reads nothing and writes zeros
+__device__ __forceinline__ void cp8(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(tc::smem_addr(dst)), "l"(src),
+               "r"(ok ? 8 : 0)
+               : "memory");
+}
+
+// x (B, H, C, W), w2p the zero-padded bf16 w2^T (rows: output channels,
+// row stride ldw >= kp), out (B, H, C, W). Block blockIdx.x: image rows y0 .. y0 +
+// NR of image b, columns x0 .. x0 + WT, all output channels. V: the
+// elements of one staging copy, the most that W allows (W % 4 == 0: 4, by
+// 8-byte cp.async from column x0 - 4; W even: 2, by 4-byte cp.async from
+// x0 - 2; else 1, by plain loads issued together); W is then a multiple of
+// V, so a copy is on the image or off it as a whole.
+template <class K, int V>
+__global__ void __launch_bounds__(NT, 1) hcw_tc_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ dw, const float* __restrict__ db,
+    const bf16* __restrict__ w2p, const float* __restrict__ b2, bf16* __restrict__ out, int H, int W, int C,
+    int ldw, int nseg, int nrb) {
+  constexpr int WT = K::WT, NR = K::NR, KC = K::KC;
+  constexpr int OFF = V == 4 ? 4 : P;  // staged column s is image column x0 - OFF + s
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kp = (C + KC - 1) / KC * KC, kt = K::t_rows(C);
+  bf16* ts = reinterpret_cast<bf16*>(smem);  // t [kt][TS]: rows input channels, cols pixels (row-major)
+  bf16* reg = ts + kt * K::TS;               // phase 1: [DEPTH][DC * SR rows][SW]; phase 2: [DEPTH][MB][RS]
+
+  const int seg = blockIdx.x % nseg, rb = blockIdx.x / nseg % nrb, b = blockIdx.x / nseg / nrb;
+  const int x0 = seg * WT, y0 = rb * NR;
+  const int nm = (C + K::MB - 1) / K::MB, nk = kp / KC, nst = nm * nk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // Phase 1: t for all kp channels of the block's pixels, once. Staged row
+  // r = (cc, u) of chunk c0 holds image row y0 + u - 2 of channel c0 + cc,
+  // columns x0 - OFF .. x0 + WT + OFF (zeros off the image and past C).
+  const bf16* xb = x + b * H * C * W;
+  auto load_x = [&](int c0, bf16* buf) {
+    if constexpr (V > 1) {
+#pragma unroll
+      for (int k = 0; k < K::ROWS; ++k) {
+        const int r = warp + k * (NT / 32), gy = y0 + r % K::SR - P, gc = c0 + r / K::SR;
+        const bool rok = gy >= 0 && gy < H && gc < C;
+        const bf16* src = xb + (rok ? (gy * C + gc) * W : 0) + x0 - OFF;
+        for (int p = lane; p < (WT + 2 * OFF) / V; p += 32) {
+          const int gx = x0 - OFF + V * p;
+          const bool ok = rok && gx >= 0 && gx < W;
+          if constexpr (V == 4)
+            cp8(buf + r * K::SW + V * p, ok ? src + V * p : xb, ok);
+          else
+            tc::cp4(buf + r * K::SW + V * p, ok ? src + V * p : xb, ok);
+        }
+      }
+    } else {  // all loads of the chunk first, then the stores
+      bf16 v[K::ROWS][K::PASSES];
+#pragma unroll
+      for (int k = 0; k < K::ROWS; ++k) {
+        const int r = warp + k * (NT / 32), gy = y0 + r % K::SR - P, gc = c0 + r / K::SR;
+        const bool rok = gy >= 0 && gy < H && gc < C;
+        const bf16* src = xb + (rok ? (gy * C + gc) * W : 0) + x0 - P;
+#pragma unroll
+        for (int p = 0; p < K::PASSES; ++p) {
+          const int s = lane + 32 * p, gx = x0 - P + s;
+          v[k][p] = rok && s < WT + 2 * P && gx >= 0 && gx < W ? src[s] : __float2bfloat16(0.f);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < K::ROWS; ++k)
+#pragma unroll
+        for (int p = 0; p < K::PASSES; ++p)
+          if (lane + 32 * p < WT + 2 * P) buf[(warp + k * (NT / 32)) * K::SW + lane + 32 * p] = v[k][p];
+    }
+  };
+  // a thread: channel dc of each chunk, columns R dj .. of all NR rows; its
+  // 25 taps and bias are loaded a chunk ahead
+  const int dc = threadIdx.x / K::JN, dj = threadIdx.x % K::JN;
+  auto weights = [&](int c0, float (&w)[KS * KS + 1]) {
+    const int c = c0 + dc;
+#pragma unroll
+    for (int t = 0; t < KS * KS; ++t) w[t] = c < C ? __ldg(dw + t * C + c) : 0.f;
+    w[KS * KS] = c < C ? __ldg(db + c) : 0.f;
+  };
+  const int nch = kt / K::DC;
+  for (int j = 0; j < DEPTH - 1; ++j) {
+    if (j < nch) load_x(j * K::DC, reg + j * K::CHUNK);
+    tc::cp_commit();
+  }
+  float wnext[KS * KS + 1];
+  weights(0, wnext);
+  int slot = 0;  // chunk ch's buffer, ch % DEPTH
+  for (int ch = 0; ch < nch; ++ch) {
+    tc::cp_wait<DEPTH - 2>();  // chunk ch has landed
+    __syncthreads();           // ... for every thread, and chunk ch - 1's buffer is free
+    const int c0 = ch * K::DC;
+    if (ch + DEPTH - 1 < nch) load_x(c0 + (DEPTH - 1) * K::DC, reg + (slot == 0 ? DEPTH - 1 : slot - 1) * K::CHUNK);
+    tc::cp_commit();
+    float w[KS * KS + 1];
+#pragma unroll
+    for (int t = 0; t <= KS * KS; ++t) w[t] = wnext[t];
+    if (ch + 1 < nch) weights(c0 + K::DC, wnext);
+
+    const bool live = c0 + dc < C && x0 + dj * K::R < W;
+    float acc[NR][K::R];
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+#pragma unroll
+      for (int i = 0; i < K::R; ++i) acc[r][i] = 0.f;
+    if (live) {
+      const bf16* src = reg + slot * K::CHUNK + dc * K::SR * K::SW + dj * K::R + OFF - P;
+#pragma unroll
+      for (int sr = 0; sr < K::SR; ++sr) {  // each staged row feeds up to 5 output rows
+        float row[K::R + 2 * P];
+        uint32_t wd[(K::R + 2 * P) / 2];
+#pragma unroll
+        for (int k = 0; k < (K::R + 2 * P) / 2; ++k)  // 4-byte shared loads (pairs on 4 bytes)
+          wd[k] = reinterpret_cast<const uint32_t*>(src + sr * K::SW)[k];
+#pragma unroll
+        for (int i = 0; i < K::R + 2 * P; ++i) row[i] = roma::Elem<bf16>::get(wd, i);
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {
+          const int u = sr - r;
+          if (u < 0 || u >= KS) continue;
+#pragma unroll
+          for (int v = 0; v < KS; ++v)
+#pragma unroll
+            for (int i = 0; i < K::R; ++i) acc[r][i] = fmaf(row[i + v], w[u * KS + v], acc[r][i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      uint2 tv = make_uint2(0u, 0u);  // past C (w2p is zero there) or past the image's last column
+      if (live)
+        tv = make_uint2(roma::pack_bf16(fmaxf(acc[r][0] + w[KS * KS], 0.f), fmaxf(acc[r][1] + w[KS * KS], 0.f)),
+                        roma::pack_bf16(fmaxf(acc[r][2] + w[KS * KS], 0.f), fmaxf(acc[r][3] + w[KS * KS], 0.f)));
+      *reinterpret_cast<uint2*>(ts + (c0 + dc) * K::TS + r * WT + dj * K::R) = tv;
+    }
+    slot = slot + 1 == DEPTH ? 0 : slot + 1;
+  }
+  __syncthreads();  // t is complete, and the staged chunks' region is free for the ring
+
+  // Phase 2: out[d, p] = sum_c w2p[d, c] t[c, p] + b2[d] for each M-chunk,
+  // w2 tiles streamed through the cp.async ring, the sum in f32 registers.
+  // Ring stage i: M-chunk i / nk, input channels (i % nk) KC .., in buffer
+  // i % DEPTH; the loads run DEPTH - 1 tiles ahead (counters, no divisions
+  // in the loop).
+  int l_slot = 0, l_k = 0, l_m = 0;  // the next tile to load
+  auto load_next = [&]() {
+    bf16* dst = reg + l_slot * K::STAGE;
+    const bf16* src = w2p + (l_m * K::MB) * ldw + l_k * KC;
+#pragma unroll
+    for (int j = threadIdx.x; j < K::MB * KC / 8; j += NT) {
+      const int r = j / (KC / 8), c = j % (KC / 8) * 8;
+      tc::cp16(dst + r * K::RS + c, src + r * ldw + c, true);
+    }
+    l_slot = l_slot + 1 == DEPTH ? 0 : l_slot + 1;
+    if (++l_k == nk) l_k = 0, ++l_m;
+  };
+  for (int i = 0; i < DEPTH - 1; ++i) {
+    if (i < nst) load_next();
+    tc::cp_commit();
+  }
+  const int g = lane / 4, q = lane % 4, wm = warp % K::WM, wn = warp / K::WM;
+  const int yr = y0 + 32 * wn / WT, xw = x0 + 32 * wn % WT;  // the warp's image row and first column
+  const int nact = yr >= H || xw >= W ? 0 : min(4, (W - xw + 7) / 8);  // its n-tiles of 8 columns on the image
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
+  bf16* orow = out + (b * H + yr) * C * W;
+  int c_slot = 0, c_k = 0, c_m = 0;  // the tile to compute
+  for (int i = 0; i < nst; ++i) {
+    tc::cp_wait<DEPTH - 2>();
+    __syncthreads();
+    if (i + DEPTH - 1 < nst) load_next();
+    tc::cp_commit();
+    const bf16* wt = reg + c_slot * K::STAGE;
+    const int kb = c_k * KC;
+    if (nact > 0) {  // all 4 n-tiles (t is zero past the image's last column)
+      constexpr int KK = KC / 16;
+      uint32_t a[KK][2][4], bq[KK][2][4];  // the stage's fragments, loaded before its products
+#pragma unroll
+      for (int k = 0; k < KK; ++k) {
+        tc::frag_a<KC>(a[k][0], wt, 32 * wm, 16 * k);
+        tc::frag_a<KC>(a[k][1], wt, 32 * wm + 16, 16 * k);
+        tc::frag_bt<K::N>(bq[k][0], ts, kb + 16 * k, 32 * wn);
+        tc::frag_bt<K::N>(bq[k][1], ts, kb + 16 * k, 32 * wn + 16);
+      }
+#pragma unroll
+      for (int k = 0; k < KK; ++k)
+#pragma unroll
+        for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            tc::mma(acc[mi][2 * nj], a[k][mi], bq[k][nj][0], bq[k][nj][1]);
+            tc::mma(acc[mi][2 * nj + 1], a[k][mi], bq[k][nj][2], bq[k][nj][3]);
+          }
+    }
+    c_slot = c_slot + 1 == DEPTH ? 0 : c_slot + 1;
+    if (++c_k < nk) continue;
+    // the M-chunk's epilogue: bias, one rounding, stores along W
+    if (nact > 0) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int d = c_m * K::MB + 32 * wm + 16 * mi + g + 8 * h;
+          if (d >= C) continue;
+          const float bias = __ldg(b2 + d);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int xc = xw + 8 * nt + 2 * q;
+            const float v0 = acc[mi][nt][2 * h] + bias, v1 = acc[mi][nt][2 * h + 1] + bias;
+            bf16* o = orow + d * W + xc;
+            if constexpr (V > 1) {  // W even: an even column's pair is on the image or off it
+              if (xc < W) *reinterpret_cast<uint32_t*>(o) = roma::pack_bf16(v0, v1);
+            } else {
+              if (xc < W) o[0] = __float2bfloat16(v0);
+              if (xc + 1 < W) o[1] = __float2bfloat16(v1);
+            }
+          }
+        }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
+    c_k = 0, ++c_m;
+  }
+}
+
+template <class K, int V>
+cudaError_t launch_hcw(const bf16* x, const float* dw, const float* db, const bf16* w2p, int ldw, const float* b2,
+                       bf16* out, int B, int H, int W, int C, size_t smem, cudaStream_t s) {
+  constexpr int WT = K::WT, NR = K::NR;
+  auto kernel = hcw_tc_kernel<K, V>;
+  cudaError_t err = roma::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int nseg = (W + WT - 1) / WT, nrb = (H + NR - 1) / NR;
+  const long long blocks = (long long)B * nrb * nseg;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, NT, smem, s>>>(x, dw, db, w2p, b2, out, H, W, C, ldw, nseg, nrb);
+  return cudaGetLastError();
+}
+
+template <int WT, int NR, int KC>
+bool try_hcw(int C, int optin, const bf16* x, const float* dw, const float* db, const bf16* w2p, int ldw,
+             const float* b2, bf16* out, int B, int H, int W, cudaStream_t s, cudaError_t& err) {
+  using K = Hcw<WT, NR, KC>;
+  const size_t smem = smem_hcw<K>(C);
+  if (smem > (size_t)optin) return false;
+  err = W % 4 == 0   ? launch_hcw<K, 4>(x, dw, db, w2p, ldw, b2, out, B, H, W, C, smem, s)
+        : W % 2 == 0 ? launch_hcw<K, 2>(x, dw, db, w2p, ldw, b2, out, B, H, W, C, smem, s)
+                     : launch_hcw<K, 1>(x, dw, db, w2p, ldw, b2, out, B, H, W, C, smem, s);
+  return true;
+}
+
+// The most pixels a block whose t fits the shared memory beside the
+// pipelines' buffers: 4 rows of 64 columns (C <= 336 on an H100: the
+// released C = 144), 2 rows (C <= 640: 569), 2 rows of 32 columns (C <=
+// 1216: 1137), else 1 row of 32 (C <= 1472: 1377). More pixels a block is
+// fewer w2 tiles a pixel, and more output rows for each staged input row. A w2 tile holds 64 input channels (fewer
+// barriers a product), 48 at C <= 336, where 64 would pad C = 144 by a third.
+int launch_hcw_tc(const void* x, const void* dw, const void* db, const void* w2p, const void* b2, void* out,
+                  int B, int H, int W, int C, cudaStream_t s) {
+  const int ldw = (C + W2_COLS - 1) / W2_COLS * W2_COLS;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* xs = static_cast<const bf16*>(x);
+  const auto *dwf = static_cast<const float*>(dw), *dbf = static_cast<const float*>(db),
+             *b2f = static_cast<const float*>(b2);
+  const auto* w2 = static_cast<const bf16*>(w2p);
+  auto* os = static_cast<bf16*>(out);
+#define ROMA_HCW_ARGS C, optin, xs, dwf, dbf, w2, ldw, b2f, os, B, H, W, s, err
+  if (!try_hcw<64, 4, 48>(ROMA_HCW_ARGS) && !try_hcw<64, 2, 64>(ROMA_HCW_ARGS) &&
+      !try_hcw<32, 2, 64>(ROMA_HCW_ARGS) && !try_hcw<32, 1, 64>(ROMA_HCW_ARGS))
+    err = cudaErrorInvalidValue;
+#undef ROMA_HCW_ARGS
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
-// layout 0: x and out are (B, H, W, C) (Kernel I); 1: (B, H, C, W) (Kernel J)
+// layout 0: x and out are (B, H, W, C) (Kernel I); 1: (B, H, C, W) (Kernel
+// J). path 0: the 8x8-tile kernel, w2 the folded f32 (C_in, C_out); path 1
+// (layout 1, bf16 only): the tensor-core kernel, w2 the folded w2^T rounded
+// to bf16 and zero-padded to (W2_ROWS, W2_COLS) multiples
+// (ops/wide_refiner.py:padded_w2t).
 extern "C" int roma_wide_refiner_block(const void* x, const void* dw, const void* db, const void* w2,
                                        const void* b2, void* out, int B, int H, int W, int C,
-                                       int layout, int dtype, void* stream) {
-  if (B < 1 || H < 1 || W < 1 || C < 1 || (layout != 0 && layout != 1))
+                                       int layout, int path, int dtype, void* stream) {
+  if (B < 1 || H < 1 || W < 1 || C < 1 || (layout != 0 && layout != 1) || (path != 0 && path != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == 1) {
+    if (layout != 1 || dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_hcw_tc(x, dw, db, w2, b2, out, B, H, W, C, s);
+  }
   Dims d{H, W, C, (long long)H * W * C, 0, 0, 0};
   if (layout == 0) {
     d.sy = (long long)W * C, d.sx = C, d.sc = 1;
@@ -273,7 +652,6 @@ extern "C" int roma_wide_refiner_block(const void* x, const void* dw, const void
   const long long tiles = (long long)((H + TH - 1) / TH) * ((W + TW - 1) / TW);
   if (tiles > 65535 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((C + tn - 1) / tn, static_cast<unsigned>(tiles), B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   ROMA_DISPATCH_DTYPE(dtype, {
     const scalar_t* xs = static_cast<const scalar_t*>(x);
     scalar_t* os = static_cast<scalar_t*>(out);

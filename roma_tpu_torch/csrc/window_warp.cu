@@ -52,90 +52,15 @@
 //     with 16-byte stores. No per-tile slot table is built.
 #include <cstdint>
 
-#include "common.cuh"
+#include "common.cuh"  // Elem, read_tap, store16
 
 namespace {
 
 constexpr int QB = 256;  // queries (threads) a block of the templated kernels
 
-// channel j of a run of raw 32-bit words, as f32
-template <typename T>
-struct Elem;
-template <>
-struct Elem<float> {
-  __device__ static float get(const uint32_t* w, int j) { return __uint_as_float(w[j]); }
-  __device__ static float load(const float* p) { return __ldg(p); }
-};
-template <>
-struct Elem<__nv_bfloat16> {
-  __device__ static float get(const uint32_t* w, int j) {
-    const uint32_t u = w[j >> 1];  // little-endian: the even element is the low half
-    return __uint_as_float((j & 1) ? (u & 0xffff0000u) : (u << 16));
-  }
-  __device__ static float load(const __nv_bfloat16* p) {
-    return __uint_as_float(static_cast<uint32_t>(__ldg(reinterpret_cast<const unsigned short*>(p))) << 16);
-  }
-};
-
-// NW words from p in loads of VB bytes (p aligned to VB)
-template <int VB, int NW>
-__device__ __forceinline__ void load_words(const void* p, uint32_t (&w)[NW]) {
-  static_assert(NW * 4 % VB == 0, "whole vectors");
-  if constexpr (VB == 16) {
-#pragma unroll
-    for (int k = 0; k < NW / 4; ++k) {
-      const uint4 u = __ldg(static_cast<const uint4*>(p) + k);
-      w[4 * k] = u.x, w[4 * k + 1] = u.y, w[4 * k + 2] = u.z, w[4 * k + 3] = u.w;
-    }
-  } else if constexpr (VB == 8) {
-#pragma unroll
-    for (int k = 0; k < NW / 2; ++k) {
-      const uint2 u = __ldg(static_cast<const uint2*>(p) + k);
-      w[2 * k] = u.x, w[2 * k + 1] = u.y;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < NW; ++k) w[k] = __ldg(static_cast<const unsigned int*>(p) + k);
-  }
-}
-
-// the C channels of the pixel at p, as f32 (see the note at the top)
-template <typename T, int C>
-__device__ __forceinline__ void read_tap(const T* p, float (&v)[C]) {
-  constexpr int ES = sizeof(T);
-  static_assert(C >= 2, "C >= 2");
-  if constexpr (C % 2 == 0) {
-    constexpr int NB = C * ES;
-    constexpr int VB = NB % 16 == 0 ? 16 : NB % 8 == 0 ? 8 : 4;
-    uint32_t w[NB / 4];
-    load_words<VB>(p, w);
-#pragma unroll
-    for (int j = 0; j < C; ++j) v[j] = Elem<T>::get(w, j);
-  } else {
-    const bool odd = (reinterpret_cast<uintptr_t>(p) & (2 * ES - 1)) != 0;  // p is not on a pair
-    const float lone = Elem<T>::load(p + (odd ? 0 : C - 1));
-    uint32_t w[(C - 1) * ES / 4];
-    load_words<2 * ES>(p + (odd ? 1 : 0), w);
-    v[0] = odd ? lone : Elem<T>::get(w, 0);
-#pragma unroll
-    for (int j = 1; j < C - 1; ++j) v[j] = odd ? Elem<T>::get(w, j - 1) : Elem<T>::get(w, j);
-    v[C - 1] = odd ? Elem<T>::get(w, C - 2) : lone;
-  }
-}
-
-// 16 bytes of outputs from the f32 stage (s 16-byte aligned)
-__device__ __forceinline__ void store16(float* o, const float* s) {
-  *reinterpret_cast<float4*>(o) = *reinterpret_cast<const float4*>(s);
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // lo in the low half, rounded to nearest even
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-__device__ __forceinline__ void store16(__nv_bfloat16* o, const float* s) {
-  const float4 a = reinterpret_cast<const float4*>(s)[0], b = reinterpret_cast<const float4*>(s)[1];
-  *reinterpret_cast<uint4*>(o) =
-      make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
-}
+using roma::Elem;
+using roma::read_tap;
+using roma::store16;
 
 // CT channels in registers, or CT = 0: the looped kernel for a run-time C
 template <typename T, int CT>

@@ -1,17 +1,20 @@
-"""Variants of Kernels B and D timed against the sources as they stand.
+"""Variants of Kernels B, C, D and J timed against the sources as they stand.
 
     python3 -m roma_tpu_torch.tools.kernel_variants [--only NAME ...]
 
-Each variant is a copy of ``csrc/local_corr.cu`` or ``csrc/refiner_stack.cu``
-with named text replaced (VARIANTS), built alone by nvcc into
+Each variant is a copy of ``csrc/local_corr.cu``, ``csrc/warp_sample.cu``,
+``csrc/refiner_stack.cu`` or ``csrc/wide_refiner.cu`` with named text
+replaced (VARIANTS), built alone by nvcc into
 ``build/kernel_variants/<name>.so`` (all builds in parallel) and called
-through its C entry on bf16 inputs at the main path's shapes (B's five
-local-correlation scales, D's 9-block scale-1 stacks at 560^2 and 864^2,
-B = 2). For each it prints the device time of each shape (calls captured in
-a CUDA graph and replayed, the median over replays), their sum, and the
-largest difference from the plain version; then the card line. The
-variants are the choices the redesign of B and D weighed; "b" and "d" are
-the sources unchanged. Needs a CUDA card and nvcc.
+through its C entry on bf16 inputs at the shapes chip_smoke.py gives the
+kernel (B's five local-correlation scales, C's nine x_hat lookups, D's
+9-block scale-1 stacks at 560^2 and 864^2, J's seven 9-block wide-C stacks
+(B, H, C, W); B = 2). For each it prints the device time of each shape
+(calls captured in a CUDA graph and replayed, the median over replays),
+their sum, and the largest difference from the plain version; then the
+card line. The variants are the choices the redesigns of B, C, D and J
+weighed; "b", "c", "d" and "j" are the sources unchanged. Needs a CUDA card
+and nvcc.
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ import torch.nn.functional as F
 
 from .. import _ext, ops
 from ..ops.local_corr import corr_checks
+from ..ops.warp_sample import PATH_CODES, warp_sample_checks
+from ..ops.wide_refiner import block_w2t
 from . import card_line, cuda_ms, require_card
 
 OUT = _ext.BUILD_DIR.parent / "kernel_variants"
@@ -41,7 +46,36 @@ VARIANTS = {
                                              "nv == 2 ? launch_const_p<scalar_t, 2>(")]),
     "d": ("refiner_stack.cu", []),
     "d_one_block_an_sm": ("refiner_stack.cu", [("__launch_bounds__(NT, 2)", "__launch_bounds__(NT, 1)")]),
+    # C: lanes a query on the vector path (in bf16 C = 512 takes 32 lanes of
+    # 2 vectors, C = 256 16 lanes of 2; here one vector a lane, or two only
+    # from C = 512)
+    "c": ("warp_sample.cu", []),
+    "c_one_vector_a_lane": ("warp_sample.cu", [("if (L >= 32 && L % 2 == 0) {", "if (false) {")]),
+    "c_two_vectors_from_c512": ("warp_sample.cu", [("if (L >= 32 && L % 2 == 0) {", "if (L >= 64 && L % 2 == 0) {")]),
+    # J: the pixels a block, the input channels a w2 tile, the pipelines' depth
+    "j": ("wide_refiner.cu", []),
+    "j_one_row_a_block": ("wide_refiner.cu", [
+        ("if (!try_hcw<64, 4, 48>(ROMA_HCW_ARGS) && !try_hcw<64, 2, 64>(ROMA_HCW_ARGS) &&\n      "
+         "!try_hcw<32, 2, 64>(ROMA_HCW_ARGS) && ", "if (")]),
+    "j_no_2x32": ("wide_refiner.cu", [("!try_hcw<32, 2, 64>(ROMA_HCW_ARGS) && ", "")]),
+    "j_tile48_everywhere": ("wide_refiner.cu", [(", 64>(ROMA_HCW_ARGS)", ", 48>(ROMA_HCW_ARGS)")]),
+    "j_tile64_at_c144": ("wide_refiner.cu", [("try_hcw<64, 4, 48>", "try_hcw<64, 4, 64>")]),
+    "j_depth2": ("wide_refiner.cu", [("constexpr int DEPTH = 3;", "constexpr int DEPTH = 2;")]),
+    "j_no_8byte_staging": ("wide_refiner.cu", [("err = W % 4 == 0   ?", "err = false ?")]),
+    # J's two phases alone (timing probes: the output is wrong)
+    "j_probe_depthwise_only": ("wide_refiner.cu", [("for (int i = 0; i < nst; ++i) {", "for (int i = 0; i < 0; ++i) {")]),
+    "j_probe_product_only": ("wide_refiner.cu", [("for (int ch = 0; ch < nch; ++ch) {", "for (int ch = 0; ch < 0; ++ch) {")]),
 }
+WARP_SHAPES = (("coarse s16 40^2 C512", 40, 512), ("coarse s8 70^2 C512", 70, 512),
+               ("coarse s4 140^2 C256", 140, 256), ("coarse s2 280^2 C64", 280, 64),
+               ("coarse s1 560^2 C9", 560, 9), ("upsample s8 108^2 C512", 108, 512),
+               ("upsample s4 216^2 C256", 216, 256), ("upsample s2 432^2 C64", 432, 64),
+               ("upsample s1 864^2 C9", 864, 9))
+# chip_smoke.py's WIDE_SHAPES: (label, H = W, C)
+WIDE_SHAPES = (("coarse s16 35^2 C1377", 35, 1377), ("coarse s8 70^2 C1137", 70, 1137),
+               ("coarse s4 140^2 C569", 140, 569), ("coarse s2 280^2 C144", 280, 144),
+               ("upsample s8 108^2 C1137", 108, 1137), ("upsample s4 216^2 C569", 216, 569),
+               ("upsample s2 432^2 C144", 432, 144))
 CORR_SHAPES = (("coarse s16 40^2 C512 r7", 40, 512, 7), ("coarse s8 70^2 C512 r3", 70, 512, 3),
                ("coarse s4 140^2 C256 r2", 140, 256, 2), ("upsample s8 108^2 C512 r3", 108, 512, 3),
                ("upsample s4 216^2 C256 r2", 216, 256, 2))
@@ -123,6 +157,64 @@ def stack_cases(gen):
     return out
 
 
+def warp_cases(gen):
+    out = []
+    for label, hw, c in WARP_SHAPES:
+        y = torch.randn(2, hw, hw, c, generator=gen, device="cuda").to(torch.bfloat16)
+        w = smooth_warp(gen, 2, hw, hw)
+        out.append((label, (y, w), ops.warp_sample_reference(y, w)))
+    return out
+
+
+def wide_cases(gen):
+    from .bench_hcw_refiner import make_modules
+
+    out = []
+    for label, hw, c in WIDE_SHAPES:
+        with torch.no_grad():
+            mods = make_modules(c, gen, "cuda")
+            blocks = ops.fold_refiner(mods[0], mods[1:])
+        x = torch.randn(2, hw, hw, c, generator=gen, device="cuda").to(torch.bfloat16)
+        ref = ops.wide_refiner_stack_reference(x, blocks).permute(0, 1, 3, 2).contiguous()
+        out.append((label, (x.permute(0, 1, 3, 2).contiguous(), blocks), ref))
+        del mods, x
+    return out
+
+
+def warp_call(lib, args, out):
+    y, w = args
+    b, h, ww, c, hq, wq, path = warp_sample_checks("kernel_variants", y, w)
+    fn = lib.roma_warp_sample
+    fn.argtypes, fn.restype = [P, P, P, I, I, I, I, I, I, I, I, P], I
+    ptrs = (y.data_ptr(), w.data_ptr(), out.data_ptr())
+
+    def call():
+        if fn(*ptrs, b, h, ww, c, hq, wq, PATH_CODES[path], 1, _ext.stream()):
+            raise RuntimeError("roma_warp_sample failed")
+        return out
+    return call
+
+
+def wide_call(lib, args, out):
+    x, blocks = args
+    b, h, c, w = x.shape
+    fn = lib.roma_wide_refiner_block
+    fn.argtypes, fn.restype = [P] * 6 + [I] * 7 + [P], I
+    bufs = (out, torch.empty_like(x))
+    w2s = [block_w2t(blk) for blk in blocks]  # made once, outside the timed calls, as the wrapper keeps them
+
+    def call():
+        y = x
+        for i, (blk, w2) in enumerate(zip(blocks, w2s)):
+            o = bufs[(i + len(blocks) + 1) % 2]  # the last block lands in out
+            if fn(y.data_ptr(), blk["dw"].data_ptr(), blk["db"].data_ptr(), w2.data_ptr(), blk["b2"].data_ptr(),
+                  o.data_ptr(), b, h, w, c, 1, 1, 1, _ext.stream()):
+                raise RuntimeError("roma_wide_refiner_block failed")
+            y = o
+        return y
+    return call
+
+
 def corr_call(lib, args, out):
     f0, f1, r, w = args
     b, h, ww, c, nv = corr_checks("kernel_variants", f0, f1, r, w)
@@ -165,10 +257,15 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(build, names)))
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = {"local_corr.cu": (corr_cases(gen), corr_call), "refiner_stack.cu": (stack_cases(gen), stack_call)}
+    makers = {"local_corr.cu": (corr_cases, corr_call), "warp_sample.cu": (warp_cases, warp_call),
+              "refiner_stack.cu": (stack_cases, stack_call), "wide_refiner.cu": (wide_cases, wide_call)}
+    cases = {}
     for name in names:
         lib = ctypes.CDLL(str(libs[name].resolve()))
-        shapes, make = cases[VARIANTS[name][0]]
+        source = VARIANTS[name][0]
+        if source not in cases:  # inputs made once a source, only for the sources asked for
+            cases[source] = (makers[source][0](gen), makers[source][1])
+        shapes, make = cases[source]
         total, err = 0.0, 0.0
         for label, args, ref in shapes:
             call = make(lib, args, torch.empty_like(ref))

@@ -1,7 +1,7 @@
 """The card run's own checks, on the CPU: chip_smoke.py's spill gate on a
 ptxas report, the bf16 ulp its bars count in, the planted faults of Kernels
-D and B's plain versions breaking their ulp bar, and where the build keeps
-the report it reads."""
+D, B, C and J's plain versions breaking their ulp bar, the edge shapes'
+coverage, and where the build keeps the report it reads."""
 import os
 import sys
 
@@ -78,10 +78,18 @@ def _planted_cases():
         warp = torch.stack((xs, ys), -1)[None] + 0.05 * torch.randn(2, 18, 17, 2, generator=gen)
         out.append(("local_correlation", ops.local_correlation_reference(f0, f1, r, warp),
                     chip_smoke.corr_fractions_swapped(f0, f1, r, warp)))
+    y = rn(2, 20, 22, 64)
+    ys, xs = torch.meshgrid(torch.linspace(-1, 1, 15), torch.linspace(-1, 1, 17), indexing="ij")
+    flow = torch.stack((xs, ys), -1)[None] + 0.05 * torch.randn(2, 15, 17, 2, generator=gen)
+    out.append(("warp_sample", ops.warp_sample_reference(y, flow), chip_smoke.warp_fractions_swapped(y, flow)))
+    blocks = chip_smoke.refiner_blocks(gen, 40, 3, device="cpu")
+    x = rn(2, 12, 14, 40)
+    out.append(("hcw_refiner_block", ops.wide_refiner_stack_reference(x, blocks),
+                chip_smoke.refiner_edge_clamped(x, blocks, round_w2=True)))
     return out
 
 
-@pytest.mark.parametrize("i", range(4))
+@pytest.mark.parametrize("i", range(6))
 def test_planted_faults_break_the_ulp_bar(i, capsys):
     name, ref, wrong = _planted_cases()[i]
     chip_smoke.check_power(name, "cpu", "", ref, wrong, chip_smoke.FAULTS[name])
@@ -108,3 +116,43 @@ def test_the_ulp_bar_is_held_only_in_bf16():
         chip_smoke.check_output(name, "cpu", torch.bfloat16, ref.float() + bump, ref)
     chip_smoke.check_output(name, "cpu", torch.bfloat16, ref.float() + bump / (chip_smoke.ULP_BARS[name] + 1), ref)
     chip_smoke.check_output(name, "cpu", torch.float32, ref.float() + 1e-5, ref.float())
+
+
+def test_planted_faults_change_only_what_they_name():
+    """Where the fault cannot act the faulty plain version is the plain
+    version: swapped fractions on a flow whose two fractions are equal, edge
+    clamping on a map whose border is zero (the zero padding it replaces)."""
+    gen = torch.Generator().manual_seed(4)
+    y = torch.randn(1, 16, 16, 9, generator=gen)
+    g = torch.linspace(-0.9, 0.9, 12)
+    flow = torch.stack((g, g), -1).view(1, 1, 12, 2).expand(1, 12, 12, 2).contiguous()
+    assert torch.equal(chip_smoke.warp_fractions_swapped(y, flow), ops.warp_sample_reference(y, flow))
+    blocks = chip_smoke.refiner_blocks(gen, 16, 1, device="cpu")
+    for blk in blocks:
+        blk["db"].fill_(-1e3)  # every t is 0, so every output is the bias: padding cannot show
+    x = torch.randn(1, 10, 11, 16, generator=gen).bfloat16()
+    assert torch.equal(chip_smoke.refiner_edge_clamped(x, blocks, round_w2=True),
+                       ops.wide_refiner_stack_reference(x, blocks))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_c_edges_take_the_paths_they_name(dtype):
+    from roma_tpu_torch.ops.warp_sample import warp_sample_checks
+
+    for c, path in chip_smoke.C_EDGES.items():
+        y = torch.zeros(2, 37, 45, c, dtype=dtype)
+        assert warp_sample_checks("t", y, torch.zeros(2, 29, 53, 2))[-1] == path
+    assert set(chip_smoke.C_EDGES.values()) == {"vector", "registers", "scalar"}
+
+
+def test_j_edges_cover_what_they_claim():
+    from roma_tpu_torch.ops.wide_refiner import wide_block_checks
+
+    edges = chip_smoke.J_EDGES
+    assert {1377, 1137, 569, 144, 37} <= {c for *_, c in edges}
+    assert any(h < 5 for _, h, _, _ in edges) and any(b == 1 for b, *_ in edges)
+    assert any(w % 32 and w % 2 for *_, w, _ in edges) and any(w % 32 and w % 2 == 0 for *_, w, _ in edges)
+    for b, h, w, c in edges:
+        x = torch.zeros(b, h, c, w, dtype=torch.bfloat16)
+        assert wide_block_checks("t", x, chip_smoke.refiner_blocks(torch.Generator(), c, 1, device="cpu")[0],
+                                 1)[-1] == "hcw_tc"

@@ -3,7 +3,7 @@ hcw_refiner_stack on CPU tensors) against the JAX package's two wide-C
 refiner kernels in interpret mode, at the shapes of
 tests/test_pallas_refiner.py, in float32 and bfloat16, on the same folded
 blocks; and one stack folded from torch-layout modules by the port's
-fold_refiner."""
+fold_refiner; and the kernels' argument contract with the path it picks."""
 import numpy as np
 import pytest
 import torch
@@ -22,6 +22,14 @@ from roma_tpu_torch.ops import (
     lane_refiner_block,
     refiner_stack_reference,
     wide_refiner_stack_reference,
+)
+from roma_tpu_torch.ops.wide_refiner import (
+    HCW_TC_MAX_C,
+    W2_COLS,
+    W2_ROWS,
+    block_w2t,
+    padded_w2t,
+    wide_block_checks,
 )
 
 STACKS = {
@@ -132,3 +140,93 @@ def test_hcw_block_takes_the_nhcw_layout():
     torch.testing.assert_close(got.permute(0, 1, 3, 2), lane_refiner_block(x, blocks[0]), atol=1e-5, rtol=1e-5)
     with pytest.raises(ValueError):
         hcw_refiner_stack(x, blocks, s_rows=0)
+
+
+# Kernels I and J's argument contract (ops.wide_refiner.wide_block_checks), a
+# pure function: it runs on CPU tensors here as it runs before every launch
+def _block(c):
+    return {k: torch.from_numpy(v) for k, v in _blocks(c, 1)[0].items()}
+
+
+@pytest.mark.parametrize("layout,dtype,c,path", [(0, "bfloat16", 144, "tile8x8"), (0, "float32", 37, "tile8x8"),
+                                                 (1, "float32", 144, "tile8x8"), (1, "bfloat16", 144, "hcw_tc"),
+                                                 (1, "bfloat16", 37, "hcw_tc"), (1, "bfloat16", 1377, "hcw_tc")])
+def test_checks_pick_the_path(layout, dtype, c, path):
+    shape = (2, 5, 12, c) if layout == 0 else (2, 5, c, 12)
+    x = torch.zeros(shape, dtype=getattr(torch, dtype))
+    assert wide_block_checks("t", x, _block(c), layout) == (2, 5, 12, c, path)
+
+
+def test_checks_refuse_strided_x_and_weights():
+    blk, x = _block(40), torch.zeros(1, 6, 40, 10, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        wide_block_checks("t", x.transpose(2, 3).contiguous().transpose(2, 3), blk, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        wide_block_checks("t", torch.zeros(1, 6, 10, 40, dtype=torch.bfloat16).transpose(2, 3), blk, 1)
+    for name in ("w2", "dw"):
+        bad = dict(blk)
+        bad[name] = blk[name].transpose(0, 1).contiguous().transpose(0, 1)  # the same values, strided
+        assert torch.equal(bad[name], blk[name]) and not bad[name].is_contiguous()
+        with pytest.raises(ValueError, match="contiguous"):
+            wide_block_checks("t", x, bad, 1)
+
+
+def test_checks_refuse_bad_blocks():
+    x = torch.zeros(1, 6, 40, 10, dtype=torch.bfloat16)
+    bad = dict(_block(40), w2=torch.zeros(40, 41))
+    with pytest.raises(ValueError, match="folded block"):
+        wide_block_checks("t", x, bad, 1)
+    with pytest.raises(ValueError, match="folded block"):
+        wide_block_checks("t", x, {k: v.double() for k, v in _block(40).items()}, 1)
+    with pytest.raises(TypeError):
+        wide_block_checks("t", x.half(), _block(40), 1)
+
+
+@pytest.mark.parametrize("w,align", [(10, 4), (11, 1), (12, 8)])
+def test_checks_refuse_a_misaligned_base_on_the_vector_paths(w, align):
+    """The tensor-core path copies x's rows by 8-byte vectors at W % 4 == 0
+    and by element pairs at an even W, and needs its base aligned to that;
+    at an odd W it loads elements one by one."""
+    c, blk = 40, _block(40)
+    flat = torch.zeros(6 * c * w + 16, dtype=torch.bfloat16)
+    view = lambda off: flat[off:off + 6 * c * w].view(1, 6, c, w)  # noqa: E731
+    first = next(off for off in range(8) if view(off).data_ptr() % 16 == 0)
+    for off in range(1, 4):  # bases 2, 4 and 6 bytes past 16
+        if 2 * off % align:
+            with pytest.raises(ValueError, match=f"{align}-byte aligned"):
+                wide_block_checks("t", view(first + off), blk, 1)
+        else:
+            assert wide_block_checks("t", view(first + off), blk, 1)[-1] == "hcw_tc"
+    # the 8x8-tile path (layout 0) takes any base
+    assert wide_block_checks("t", flat[first + 1:first + 1 + 6 * c * w].view(1, 6, w, c), blk, 0)[-1] == "tile8x8"
+
+
+def test_checks_refuse_widths_past_the_tensor_core_path():
+    c = HCW_TC_MAX_C + 32
+    blk = {"dw": torch.empty(5, 5, c, device="meta"), "db": torch.empty(c, device="meta"),
+           "w2": torch.empty(c, c, device="meta"), "b2": torch.empty(c, device="meta")}
+    x = torch.empty(1, 4, c, 8, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="C <="):
+        wide_block_checks("t", x, blk, 1)
+    assert wide_block_checks("t", x.float(), blk, 1)[-1] == "tile8x8"
+
+
+@pytest.mark.parametrize("c", [37, 144, 300])
+def test_padded_w2t_rounds_once_and_pads_with_zeros(c):
+    w2 = torch.randn(c, c, generator=torch.Generator().manual_seed(c))
+    p = padded_w2t(w2)
+    assert p.dtype == torch.bfloat16 and p.shape[0] % W2_ROWS == 0 and p.shape[1] % W2_COLS == 0
+    assert p.shape[0] >= c and p.shape[1] >= c and p.shape[0] - c < W2_ROWS and p.shape[1] - c < W2_COLS
+    assert torch.equal(p[:c, :c], w2.T.to(torch.bfloat16))
+    assert not p[c:].any() and not p[:, c:].any()
+
+
+def test_block_w2t_is_made_once_and_remade_when_w2_changes():
+    blk = _block(40)
+    first = block_w2t(blk)
+    assert block_w2t(blk) is first and torch.equal(first, padded_w2t(blk["w2"]))
+    blk["w2"].mul_(2.0)  # written in place: the version counter moves
+    second = block_w2t(blk)
+    assert second is not first and torch.equal(second, padded_w2t(blk["w2"]))
+    blk["w2"] = blk["w2"].clone()  # another tensor with the same values
+    assert block_w2t(blk) is not second
