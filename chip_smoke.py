@@ -45,7 +45,8 @@
    against its plain version; Kernel G's two entries against their plain
    tile computation, bit for bit, and windowed_warp / windowed_grid_sample as a whole
    against warp_sample_reference, asserting which branch each case took;
-   Kernel H against refiner_stack_reference and Kernel D; times G's
+   Kernel H against refiner_stack_reference and Kernel D (in bf16 to
+   H_ULPS, with a planted fault), timed beside D; times G's
    wrapper part by part on the host (wrapper_host_parts). Then holds G at
    its edges: a v1 partial tile (560^2), fixups at a tile's first and last
    query and on both sides of a block boundary, and widths other than 9
@@ -55,11 +56,12 @@
 9. Right after 8, checks Kernels I and J (the wide-C refiner blocks)
    against wide_refiner_stack_reference at the seven shapes the 560 -> 864
    match gives the wide-C stacks (B = 2, 9 blocks folded from refiner_block
-   modules, bf16 and f32; J in bf16 also to its ulp bar, with a planted
-   fault) and times them beside the plain version and, for J, the model's
-   own cuDNN block stack on the same modules (call and device time); then
-   check_wide_edges holds J at other widths and sizes (J_EDGES) and refuses
-   a misaligned view; then Kernel K's two
+   modules, bf16 and f32; in bf16 also to their ulp bars, with a planted
+   fault) and times them beside the plain version and the model's own
+   cuDNN block stack on the same modules (call and device time); then
+   check_wide_edges holds J, I and H at other widths and sizes (J_EDGES,
+   I_EDGES, H_EDGES), asserts the path each takes and refuses misaligned
+   views; then Kernel K's two
    entries and Kernel L against their plain versions at
    tools/bench_onehot_dots.py's sizes. After 8's caller run, drives
    lane_refiner_stack, hcw_refiner_stack and the port tools' e1 / e2 once
@@ -140,9 +142,15 @@ B_ULPS = 4
 # at WIDE_SHAPES on an H100, the planted fault 121 or more (PERF.md, PR 8).
 C_ULPS = 4
 J_ULPS = 4
+# Kernels I and H round where their plain versions round (I as J; H as D,
+# its group's planes in bf16 holding the already rounded block outputs), so
+# only f32 summation orders differ.
+I_ULPS = 4
+H_ULPS = 4
 ULP_BARS = {"fused_attention_packed": ATTN_ULPS, "fused_attention": ATTN_ULPS,
             "fused_attention_backward": ATTN_ULPS, "fused_refiner_stack": D_ULPS, "local_correlation": B_ULPS,
-            "warp_sample": C_ULPS, "hcw_refiner_block": J_ULPS}
+            "warp_sample": C_ULPS, "hcw_refiner_block": J_ULPS, "lane_refiner_block": I_ULPS,
+            "fused_refiner_stack_packed": H_ULPS}
 # the kernels of kernel_cases held to their plain version bit for bit
 BITWISE = ("warp_sample",)
 
@@ -180,8 +188,8 @@ GRAVEYARD_KERNELS = ("lane_refiner_block", "hcw_refiner_block", "onehot_dot", "w
 # over the peak for their type (H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16_TENSOR = 989e12  # bf16 x bf16 products: attention, B's dot products in bf16
-PEAK_F32 = 67e12  # CUDA cores: the rest (D and H's pointwise is f32 x f32, as on the TPU; F's int ops;
-# I and J's f32 product and every depthwise)
+PEAK_F32 = 67e12  # CUDA cores: the rest (D and H's pointwise in f32 I/O; F's int ops; I and J's f32
+# product and every depthwise)
 
 
 @dataclass
@@ -373,6 +381,21 @@ def refiner_cost(x, blocks):
             2 * n * npx * c * c, 2 * n * npx * k * k * c)
 
 
+def packed_cost(x, blocks):
+    """(bytes, pointwise ops, depthwise ops, the pointwise's peak, body) of
+    Kernel H on a folded stack: the function's bytes (x read once, the
+    output written once, the weights); the pointwise at the tensor cores'
+    peak on the c24k5 body (two bf16 products), else on the CUDA cores; the
+    depthwise on the CUDA cores."""
+    from roma_tpu_torch.ops.refiner_stack import packed_checks
+
+    *_, path, _ = packed_checks("packed_cost", x, blocks)
+    _, pw_ops, dw_ops = refiner_cost(x, blocks)
+    c, k = x.shape[-1], blocks[0]["dw"].shape[0]
+    nbytes = 2 * x.numel() * x.element_size() + len(blocks) * 4 * (k * k * c + c * c + 2 * c)
+    return nbytes, pw_ops, dw_ops, PEAK_BF16_TENSOR if path == "c24k5" else PEAK_F32, path
+
+
 def refiner_edge_clamped(x, blocks, round_w2=False):
     """refiner_stack_reference (``round_w2`` as there) with one planted
     fault: the depthwise conv pads by repeating the image's edge instead of
@@ -427,7 +450,9 @@ def corr_fractions_swapped(f0, f1, radius, warp):
 FAULTS = {"fused_refiner_stack": "edge-clamped instead of zero padding",
           "local_correlation": "fractions fy and fx swapped",
           "warp_sample": "fractions fy and fx swapped",
-          "hcw_refiner_block": "edge-clamped instead of zero padding"}
+          "hcw_refiner_block": "edge-clamped instead of zero padding",
+          "lane_refiner_block": "edge-clamped instead of zero padding",
+          "fused_refiner_stack_packed": "edge-clamped instead of zero padding"}
 
 
 def kernel_cases(gen, dt):
@@ -1366,23 +1391,35 @@ def check_window_kernels(results):
         if dt == torch.bfloat16:
             record(results["warp_tiles_v1"], err, case)
 
-    # Kernel H: the scale-1 refiner stack, 9 folded blocks of C = 24
+    # Kernel H: the scale-1 refiner stack, 9 folded blocks of C = 24, beside
+    # Kernel D on the same inputs (call and device time)
     blocks = refiner_blocks(gen)
     for dt in (torch.float32, torch.bfloat16):
         for hw in (560, 864):
             label = f"s1 {hw}^2 C24 x9"
             x = torch.randn(2, hw, hw, 24, generator=gen, device="cuda").to(dt)
-            nbytes, pw_ops, dw_ops = refiner_cost(x, blocks)  # H's products are all f32 on the CUDA cores
+            nbytes, pw_ops, dw_ops, peak, path = packed_cost(x, blocks)
             case = Case("fused_refiner_stack_packed", label, lambda x=x: ops.fused_refiner_stack_packed(x, blocks),
-                        lambda x=x: ops.refiner_stack_reference(x, blocks), bytes=nbytes, ops=pw_ops,
-                        f32_ops=dw_ops)
+                        lambda x=x: ops.refiner_stack_reference(x, blocks), bytes=nbytes, ops=pw_ops, peak=peak,
+                        f32_ops=dw_ops, planted=lambda x=x: refiner_edge_clamped(x, blocks))
             got = case.kern()
-            err = check_output(case.name, label, dt, got, case.plain())
-            check_output(case.name, label, dt, got, ops.fused_refiner_stack(x, blocks), "vs Kernel D ")
+            ref = case.plain()
+            err = check_output(case.name, f"{label} {path}", dt, got, ref)
+            check_output(case.name, f"{label} {path}", dt, got, ops.fused_refiner_stack(x, blocks), "vs Kernel D ")
             if dt == torch.bfloat16:
+                check_power(case.name, label, "", ref, case.planted(), FAULTS[case.name])
                 record(results[case.name], err, case)
-                print(f"{'':26s} {label:30s} bf16     Kernel H {cuda_ms(case.kern):.4f} ms  Kernel D "
-                      f"{cuda_ms(lambda x=x: ops.fused_refiner_stack(x, blocks)):.4f} ms", flush=True)
+                d = lambda x=x: ops.fused_refiner_stack(x, blocks)  # noqa: E731
+                dms = cuda_ms(d)
+                r = results[case.name]
+                r["d_ms"] = r.get("d_ms", 0.0) + dms
+                r["d_device_ms"] = r.get("d_device_ms", 0.0) + device_ms(d, dms)[0]
+                bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+                print(f"{'':26s} {label:30s} bf16     Kernel D {dms:.4f} ms (device {r['d_device_ms']:.4f} "
+                      f"summed so far); bound {max(bytes_ms, case.ops_ms()):.4f} ms, "
+                      f"{max(bytes_ms, 1e3 * (pw_ops + dw_ops) / PEAK_F32):.4f} with the pointwise in f32 "
+                      f"on the CUDA cores", flush=True)
+            del ref
         torch.cuda.empty_cache()
 
 
@@ -1495,11 +1532,11 @@ def wide_cost(x, blocks, dt):
 
 def check_wide_kernels(results):
     """Kernels I and J against wide_refiner_stack_reference at WIDE_SHAPES
-    (B = 2, 9 blocks folded from refiner_block modules), bf16 and f32; J in
-    bf16 also to J_ULPS with its planted fault (check_power), and timed
-    beside the model's cuDNN block stack on the same modules (stack_ms,
-    stack_device_ms of its row). J runs on the (B, H, C, W) copy of the
-    input, made outside the timed window."""
+    (B = 2, 9 blocks folded from refiner_block modules), bf16 and f32; in
+    bf16 also to I_ULPS and J_ULPS with their planted fault (check_power),
+    and timed beside the model's cuDNN block stack on the same modules
+    (stack_ms, stack_device_ms of their rows). J runs on the (B, H, C, W)
+    copy of the input, made outside the timed window."""
     import torch
 
     from roma_tpu_torch import ops
@@ -1522,7 +1559,8 @@ def check_wide_kernels(results):
 
             cases = (Case("lane_refiner_block", label, lambda: chain(ops.lane_refiner_block, x),
                           lambda: ops.wide_refiner_stack_reference(x, blocks), bytes=nbytes, ops=nops, peak=peak,
-                          f32_ops=dw_ops),
+                          f32_ops=dw_ops, stack=(lambda: model_stack(x, mods)) if dt == torch.bfloat16 else None,
+                          planted=lambda: refiner_edge_clamped(x, blocks, round_w2=True)),
                      Case("hcw_refiner_block", label, lambda: chain(ops.hcw_refiner_block, xt),
                           lambda: ops.wide_refiner_stack_reference(x, blocks).permute(0, 1, 3, 2),
                           bytes=nbytes, ops=nops, peak=peak, f32_ops=dw_ops,
@@ -1548,17 +1586,60 @@ def check_wide_kernels(results):
 # columns, odd and even (the staging by plain loads and by element pairs)
 J_EDGES = ((1, 9, 45, 37), (2, 3, 70, 144), (1, 4, 35, 1377), (1, 6, 33, 569), (1, 5, 100, 1137),
            (2, 7, 8, 569))
+# Kernel I off WIDE_SHAPES, (B, H, W, C): each released width at a small
+# size, odd C (37, and the released 1377, 1137, 569: staged by aligned word
+# pairs), an even C not a multiple of 8 (20), C = 16 (one output chunk holds
+# every channel: an image row is one run), H < 5, B = 1, widths that are not
+# a multiple of the block's 32 or 64 columns
+I_EDGES = ((1, 9, 45, 37), (2, 3, 70, 144), (1, 4, 35, 1377), (1, 6, 33, 569), (1, 5, 100, 1137),
+           (2, 7, 8, 569), (1, 5, 17, 20), (2, 6, 70, 16))
+# Kernel H off its two stacks, (B, H, W, C, K), 5 blocks (groups of 2 and a
+# last one of 1 on the c24k5 body): the c24k5 body (bf16 at C = 24, K = 5)
+# on ragged tiles (W not a multiple of its 28 columns, W under one tile),
+# H < 5 and B = 1; the generic body at odd C, C not a multiple of 8 and
+# other K (and every case in f32)
+H_EDGES = ((1, 37, 45, 24, 5), (1, 3, 30, 24, 5), (2, 20, 9, 24, 5), (2, 19, 70, 20, 3), (1, 33, 31, 13, 7),
+           (1, 8, 9, 5, 1))
 
 
 def check_wide_edges():
-    """Kernel J at J_EDGES against its plain version (3 folded blocks), f32
-    and bf16 (bf16 to J_ULPS), and its bf16 path refusing a base off 8 bytes
-    at a width that is a multiple of 4."""
+    """Kernel J at J_EDGES and Kernel I at I_EDGES against their plain
+    version (3 folded blocks), f32 and bf16 (bf16 to J_ULPS and I_ULPS),
+    each bf16 case's path asserted; Kernel H at H_EDGES against its plain
+    version and Kernel D (5 folded blocks), each case's body asserted; and
+    the bf16 vector paths refusing a misaligned base: J's at a width that is
+    a multiple of 4 (8 bytes), I's at C % 8 == 0 (16 bytes) and at an odd C
+    (4 bytes), H's c24k5 body (16 bytes)."""
     import torch
 
     from roma_tpu_torch import ops
+    from roma_tpu_torch.ops.refiner_stack import packed_checks
+    from roma_tpu_torch.ops.wide_refiner import wide_block_checks
 
     gen = torch.Generator(device="cuda").manual_seed(11)
+    for b, h, w, c in I_EDGES:
+        blocks = refiner_blocks(gen, c, 3)
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(b, h, w, c, generator=gen, device="cuda").to(dt)
+            path = wide_block_checks("check_wide_edges", x, blocks[0], 0)[-1]
+            require(path == ("nhwc_tc" if dt == torch.bfloat16 else "tile8x8"), f"I edge C{c} {dt}: path {path}")
+            y = x
+            for blk in blocks:
+                y = ops.lane_refiner_block(y, blk)
+            check_output("lane_refiner_block", f"edge {b}x{h}x{w} C{c} x3 {path}", dt, y,
+                         ops.wide_refiner_stack_reference(x, blocks))
+    for b, h, w, c, k in H_EDGES:
+        blocks = refiner_blocks(gen, c, 5, k)
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(b, h, w, c, generator=gen, device="cuda").to(dt)
+            path = packed_checks("check_wide_edges", x, blocks)[-2]
+            want = "c24k5" if dt == torch.bfloat16 and (c, k) == (24, 5) else "generic"
+            require(path == want, f"H edge C{c} K{k} {dt}: body {path}, not {want}")
+            got = ops.fused_refiner_stack_packed(x, blocks)
+            label = f"edge {b}x{h}x{w} C{c} K{k} x5 {path}"
+            check_output("fused_refiner_stack_packed", label, dt, got, ops.refiner_stack_reference(x, blocks))
+            check_output("fused_refiner_stack_packed", label, dt, got, ops.fused_refiner_stack(x, blocks),
+                         "vs Kernel D ")
     for b, h, w, c in J_EDGES:
         blocks = refiner_blocks(gen, c, 3)
         for dt in (torch.float32, torch.bfloat16):
@@ -1575,6 +1656,22 @@ def check_wide_edges():
         print(f"misaligned view refused: hcw_refiner_block, x base + 4 bytes: {e}", flush=True)
     else:
         raise SmokeFailure("misaligned view accepted: hcw_refiner_block, x base + 4 bytes")
+    flat = torch.zeros(2 * 8 * 16 * 1377 + 16, dtype=torch.bfloat16, device="cuda")
+    for what, call in (("lane_refiner_block C144, x base + 8 bytes",
+                        lambda: ops.lane_refiner_block(flat[4:4 + 8 * 16 * 144].view(1, 8, 16, 144),
+                                                       refiner_blocks(gen, 144, 1)[0])),
+                       ("lane_refiner_block C1377, x base + 2 bytes",
+                        lambda: ops.lane_refiner_block(flat[1:1 + 8 * 16 * 1377].view(1, 8, 16, 1377),
+                                                       refiner_blocks(gen, 1377, 1)[0])),
+                       ("fused_refiner_stack_packed C24, x base + 2 bytes",
+                        lambda: ops.fused_refiner_stack_packed(flat[1:1 + 8 * 16 * 24].view(1, 8, 16, 24),
+                                                               refiner_blocks(gen, 24, 2)))):
+        try:
+            call()
+        except ValueError as e:
+            print(f"misaligned view refused: {what}: {e}", flush=True)
+        else:
+            raise SmokeFailure(f"misaligned view accepted: {what}")
 
 
 def check_onehot_kernels(results):

@@ -33,7 +33,7 @@
 //  * any other C <= 32 and odd K: one thread per pixel of an 8 x 32 tile,
 //    the design this kernel started from.
 #include "common.cuh"
-#include "tensor_core.cuh"
+#include "refiner_c24.cuh"
 
 namespace {
 
@@ -105,12 +105,14 @@ size_t generic_smem(int C, int K) {
   return ((size_t)C * (GTH + 2 * p) * (GTW + 2 * p) + K * K * C + C * C + 2 * C) * sizeof(float);
 }
 
-// ---------------------------------------------------------------------------
-// the C = 24, K = 5 instantiation
-namespace c24 {
+}  // namespace
 
-constexpr int C = 24, K = 5, P = K / 2, KK = K * K;
-constexpr int TH = 16, TW = 32, NT = 256, NW = NT / 32;
+// ---------------------------------------------------------------------------
+// the C = 24, K = 5 instantiation (its shared pieces: refiner_c24.cuh)
+namespace c24 {
+namespace {
+
+constexpr int TH = 16, TW = 32;
 constexpr int RH = TH + 2 * P, RW = TW + 2 * P, PLANE = RH * RW;  // 20 x 36 staged pixels
 constexpr int NPIX = TH * TW;                                    // 512 output pixels
 constexpr int TPAIR = NPIX + 8;  // words per channel pair of the bf16 t tile; = 8 mod 32
@@ -136,8 +138,6 @@ __global__ void __launch_bounds__(NT, 2) refiner_block_c24_kernel(
     const T* __restrict__ x, const float* __restrict__ dw, const float* __restrict__ db,
     const float* __restrict__ w2, const float* __restrict__ b2, T* __restrict__ out, int H, int W) {
   using S = Smem<T>;
-  constexpr int EPV = 16 / sizeof(T);  // elements a 16-byte vector
-  constexpr int VPP = C / EPV;         // vectors a pixel
   extern __shared__ __align__(16) unsigned char smraw[];
   float* tile = reinterpret_cast<float*>(smraw + S::tile);
   float* dws = reinterpret_cast<float*>(smraw + S::dws);
@@ -146,30 +146,8 @@ __global__ void __launch_bounds__(NT, 2) refiner_block_c24_kernel(
   const int b = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
   const int tid = threadIdx.x, wid = tid >> 5, lane = tid & 31;
 
-  // stage the halo tile: a warp's lanes take 32 consecutive staged pixels of
-  // one vector column, so each lane's 8 (or 4) stores go to 8 planes, all on
-  // distinct banks
-  const T* xb = x + (size_t)b * H * W * C;
-  for (int i = tid; i < VPP * PLANE; i += NT) {
-    const int k = i / PLANE, p = i - k * PLANE;
-    const int r = p / RW, col = p - r * RW;
-    const int gy = y0 + r - P, gx = x0 + col - P;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-      raw = __ldg(reinterpret_cast<const uint4*>(xb + ((size_t)gy * W + gx) * C) + k);
-    float f[EPV];
-    roma::unpack16(raw, f, T());
-#pragma unroll
-    for (int e = 0; e < EPV; ++e) tile[(k * EPV + e) * PLANE + p] = f[e];
-  }
-  for (int i = tid; i < C * KK; i += NT) {
-    const int c = i / KK, uv = i - c * KK;
-    dws[i] = dw[uv * C + c];
-  }
-  if (tid < C) {
-    dbs[tid] = db[tid];
-    b2s[tid] = b2[tid];
-  }
+  stage(x + (size_t)b * H * W * C, tile, PLANE, y0 - P, x0 - P, RH, RW, H, W);
+  stage_weights(dw, db, b2, dws, dbs, b2s, 1);
   if constexpr (!S::tc) {
     float* w2s = reinterpret_cast<float*>(smraw + S::w2);
     for (int i = tid; i < C * C; i += NT) w2s[i] = w2[i];
@@ -182,30 +160,21 @@ __global__ void __launch_bounds__(NT, 2) refiner_block_c24_kernel(
 #pragma unroll
     for (int i = 0; i < KK; ++i) wr[i] = dws[c * KK + i];
     const float bias = dbs[c];
-    float acc[TH];
+    float acc[TH][1];
 #pragma unroll
-    for (int o = 0; o < TH; ++o) acc[o] = 0.f;
+    for (int o = 0; o < TH; ++o) acc[o][0] = 0.f;
     const float* src = tile + c * PLANE + lane;
 #pragma unroll
     for (int ir = 0; ir < RH; ++ir) {
       float v[K];
 #pragma unroll
       for (int q = 0; q < K; ++q) v[q] = src[ir * RW + q];
-      // output row o takes staged row ir as its tap row u = ir - o; over ir
-      // ascending each output sums its taps u-major, v-minor
-#pragma unroll
-      for (int u = K - 1; u >= 0; --u) {
-        const int o = ir - u;
-        if (o >= 0 && o < TH) {
-#pragma unroll
-          for (int q = 0; q < K; ++q) acc[o] = fmaf(v[q], wr[u * K + q], acc[o]);
-        }
-      }
+      taps<TH, 1>(ir, v, wr, acc);
     }
 #pragma unroll
     for (int o = 0; o < TH; ++o) {
       const int pix = o * TW + lane;
-      const float tv = fmaxf(acc[o] + bias, 0.f);
+      const float tv = fmaxf(acc[o][0] + bias, 0.f);
       if constexpr (S::tc) {
         // channel pair c / 2 of pixel pix, channel c in its c % 2 half
         reinterpret_cast<__nv_bfloat16*>(smraw + S::t)[((c >> 1) * TPAIR + pix) * 2 + (c & 1)] =
@@ -218,50 +187,25 @@ __global__ void __launch_bounds__(NT, 2) refiner_block_c24_kernel(
   __syncthreads();
 
   if constexpr (S::tc) {
-    // pointwise on the tensor cores: a warp takes 16-pixel row tiles, a
-    // (16 x 32) x (32 x 24) product with K padded from 24 to 32 by zeros, as
-    // two k16 steps x three n8 tiles x (hi, lo)
+    // pointwise on the tensor cores: a warp takes 16-pixel row tiles
     const int g = lane >> 2, t = lane & 3;
     uint32_t bh[2][3][2], bl[2][3][2];
+    w2_frags(w2, lane, bh, bl);
     float bias[3][2];
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      const int n = 8 * j + g;
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int k = 16 * s + 2 * t + 8 * h;
-          const float w0 = k < C ? w2[k * C + n] : 0.f, w1 = k + 1 < C ? w2[(k + 1) * C + n] : 0.f;
-          const float h0 = __bfloat162float(__float2bfloat16(w0)), h1 = __bfloat162float(__float2bfloat16(w1));
-          bh[s][j][h] = tc::pack(h0, h1);
-          bl[s][j][h] = tc::pack(w0 - h0, w1 - h1);
-        }
-      }
       bias[j][0] = b2s[8 * j + 2 * t];
       bias[j][1] = b2s[8 * j + 2 * t + 1];
     }
     const uint32_t* tw = reinterpret_cast<const uint32_t*>(smraw + S::t);
     uint32_t* ow = reinterpret_cast<uint32_t*>(smraw + S::tile);  // (NPIX, C) bf16, 12 words a pixel
     for (int m0 = wid * 16; m0 < NPIX; m0 += NW * 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        a[s][0] = tw[(8 * s + t) * TPAIR + m0 + g];
-        a[s][1] = tw[(8 * s + t) * TPAIR + m0 + g + 8];
-        a[s][2] = s == 0 ? tw[(4 + t) * TPAIR + m0 + g] : 0u;  // channels 24..31 are zero
-        a[s][3] = s == 0 ? tw[(4 + t) * TPAIR + m0 + g + 8] : 0u;
-      }
+      float acc[3][4];
+      pointwise16(tw, TPAIR, m0, lane, bh, bl, acc);
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          tc::mma(acc, a[s], bh[s][j][0], bh[s][j][1]);
-          tc::mma(acc, a[s], bl[s][j][0], bl[s][j][1]);
-        }
-        ow[(m0 + g) * (C / 2) + 4 * j + t] = tc::pack(acc[0] + bias[j][0], acc[1] + bias[j][1]);
-        ow[(m0 + g + 8) * (C / 2) + 4 * j + t] = tc::pack(acc[2] + bias[j][0], acc[3] + bias[j][1]);
+        ow[(m0 + g) * (C / 2) + 4 * j + t] = tc::pack(acc[j][0] + bias[j][0], acc[j][1] + bias[j][1]);
+        ow[(m0 + g + 8) * (C / 2) + 4 * j + t] = tc::pack(acc[j][2] + bias[j][0], acc[j][3] + bias[j][1]);
       }
     }
   } else {
@@ -284,20 +228,11 @@ __global__ void __launch_bounds__(NT, 2) refiner_block_c24_kernel(
   }
   __syncthreads();
 
-  // write the output tile: each tile row is TW * C contiguous elements
-  const uint4* os = reinterpret_cast<const uint4*>(smraw + S::tile);
-  T* ob = out + (size_t)b * H * W * C;
-  for (int i = tid; i < TH * TW * VPP; i += NT) {
-    const int r = i / (TW * VPP), cc = i - r * (TW * VPP);
-    const int gy = y0 + r, gx = x0 + cc / VPP;
-    if (gy < H && gx < W)
-      reinterpret_cast<uint4*>(ob + ((size_t)gy * W + x0) * C)[cc] = os[i];
-  }
+  store_tile(reinterpret_cast<const uint4*>(smraw + S::tile), out + (size_t)b * H * W * C, y0, x0, TH, TW, H, W);
 }
 
-}  // namespace c24
-
 }  // namespace
+}  // namespace c24
 
 extern "C" int roma_refiner_block(const void* x, const void* dw, const void* db, const void* w2,
                                   const void* b2, void* out, int B, int H, int W, int C, int K,

@@ -16,7 +16,7 @@
 // 1137, bytes bound C = 144, C = 569 sits at the ridge. In f32 the product
 // runs on the CUDA cores (as on the TPU, f32 x f32) and bounds every width.
 //
-// The 8x8-tile kernel (Kernel I in both dtypes, Kernel J in f32): a block
+// The 8x8-tile kernel (Kernels I and J in f32): a block
 // owns an 8x8 pixel tile and TN output channels, and walks the input
 // channels in steps of 32. Each step stages the step's 12x12 halo as f32 in
 // shared memory (the loop runs along the layout's contiguous dim: channels
@@ -68,6 +68,9 @@
 //   * A block computes every output channel of its pixels: splitting them
 //     over blocks to fill the 132 SMs at s16 (140 blocks) recomputes the
 //     depthwise a split, and measured no faster there and slower at s8.
+//
+// Kernel I in bf16 (nhwc_tc_kernel) runs the same two phases on NHWC; see
+// the note above it.
 #include <stdint.h>
 
 #include <algorithm>
@@ -625,22 +628,387 @@ int launch_hcw_tc(const void* x, const void* dw, const void* db, const void* w2p
   return static_cast<int>(err);
 }
 
+// ---------------------------------------------------------------------------
+// Kernel I in bf16 (nhwc_tc_kernel): J's two phases, designed for NHWC.
+//
+// A block owns NR image rows of WT columns (N = NR WT pixels, the
+// configurations of launch_hcw_tc, picked the same way) and every output
+// channel of them.
+//   * Phase 1, the depthwise once per pixel for all C channels: chunks of DC
+//     = 2048 / WT channels are staged [row][column][channel] (a pixel's
+//     chunk is one run along C), double-buffered. A thread takes a channel
+//     pair and 4 columns of all NR rows: 4-byte shared loads of pairs, each
+//     staged row read once for up to 5 output rows. t is stored
+//     [pixel][channel] (rows of kt + 8 elements), the row-major A operand.
+//     The staging at C % 8 == 0 (C = 144) is 16-byte cp.async copies. At any
+//     other C a pixel's run starts on an odd element every other pixel (at
+//     an odd C), so it copies the aligned 4-byte words that cover the run
+//     by cp.async (V = 4; the base 4-byte aligned), and a thread joins its
+//     pair from two staged words with one byte permute where the run starts
+//     odd (the parity of its index in x). Loading the words, or single
+//     elements, through registers waits on every load and measured 1.2-1.4x
+//     slower over the released widths (PERF.md, section 6).
+//   * Phase 2, out[p, d] = sum_c t[p, c] w2r[d, c] on mma.sync m16n8k16 (t by
+//     ldmatrix without .trans, w2^T's tiles [out][in] as the "col" B
+//     operand, by ldmatrix), w2^T from block_w2t through J's 3-deep cp.async
+//     ring of 64-channel tiles (48 at C <= 336), NB = 256 / (N / 32) output
+//     channels at a time. The accumulator's pairs are adjacent output
+//     channels of one pixel.
+//   * The epilogue stages each NB-channel chunk [pixel][channel] in shared
+//     memory and writes it as runs: a pixel's chunk, or, when one chunk holds
+//     all C channels, a whole image row of the block (WT C elements). A run
+//     is written as up to 7 single elements to reach 16 bytes, then 16-byte
+//     stores, then the tail; never a pair a store at an odd C.
+//   * Shared memory bounds the pixels a block at C >= 1137, as in J: t is N
+//     rows of kt bf16, so 2 x 32 pixels at C = 1137 and 1 x 32 at 1377, and
+//     the product streams all of w2 from L2 for so few pixels. The design
+//     keeps t whole (one depthwise a pixel) and measures the cost there
+//     (kernel_variants: i_no_2x32).
+template <int WT_, int NR_, int KC_>
+struct Nhwc {
+  static constexpr int WT = WT_, NR = NR_, KC = KC_;
+  static constexpr int N = NR * WT;
+  static constexpr int WN = N / 32, WM = 8 / WN, NB = 32 * WM;  // NB output channels a chunk
+  static constexpr int DC = 2048 / WT;   // channels a staged chunk: a thread a (pair, 4 columns)
+  static constexpr int PAIRS = DC / 2;
+  static constexpr int R = 4;             // depthwise columns a thread (all NR rows)
+  static constexpr int SR = NR + 2 * P, SWC = WT + 2 * P;  // staged rows and columns
+  static constexpr int DCS = DC + 8;      // a staged pixel's elements (16-byte multiple; conflict-free pairs)
+  static constexpr int RS = KC + 8;       // a row of a w2 tile
+  static constexpr int STAGE = NB * RS;   // elements of a w2 tile
+  static constexpr int CHUNK = SR * SWC * DCS;
+  static constexpr int OUT = N * NB;      // the epilogue's staging
+  static_assert(WN * WM == 8 && PAIRS * (WT / R) == NT && W2_ROWS % NB == 0 && W2_COLS % KC == 0 &&
+                    KC % 16 == 0 && DC % 16 == 0, "tiles");
+  // t's columns: C rounded up to KC (the product's k), then to DC (phase 1)
+  __host__ __device__ static int t_cols(int C) {
+    const int kp = (C + KC - 1) / KC * KC;
+    return (kp + DC - 1) / DC * DC;
+  }
+};
+
+constexpr int NHWC_SDEPTH = 2;  // staged chunks in flight (phase 1)
+
+// t, then one region (NHWC_SDEPTH staged chunks in phase 1, DEPTH w2 tiles
+// in phase 2), then the epilogue's staging
+template <class K>
+size_t smem_nhwc(int C) {
+  return 2 * ((size_t)K::N * (K::t_cols(C) + 8) +
+              std::max((size_t)DEPTH * K::STAGE, (size_t)NHWC_SDEPTH * K::CHUNK) + K::OUT);
+}
+
+// Stage channels c0 .. c0 + DC of the block's SR x SWC halo pixels of the
+// image at element boff of x into buf [row][column][DCS] (zeros off the
+// image and past C). V = 8: 16-byte cp.async (C % 8 == 0, base 16-byte
+// aligned); V = 4: 4-byte cp.async of the aligned words that cover each
+// pixel's run (base 4-byte aligned; a run starts odd where its index in x,
+// boff included, is odd, and the reader joins its pairs with a permute).
+template <class K, int V>
+__device__ __forceinline__ void nhwc_stage(const bf16* __restrict__ x, int boff, bf16* buf, int c0, int y0, int x0,
+                                           int H, int W, int C) {
+  static_assert(V == 4 || V == 8, "staging");
+  constexpr int PER = V == 4 ? K::DC / 2 + 1 : K::DC / 8, ITEMS = K::SR * K::SWC * PER;
+  for (int i = threadIdx.x; i < ITEMS; i += NT) {
+    const int v = i % PER, pix = i / PER, sr = pix / K::SWC, sc = pix % K::SWC;
+    const int gy = y0 - P + sr, gx = x0 - P + sc;
+    const bool on = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    if constexpr (V == 4) {  // the words covering elements c0 .. c0 + DC of a pixel, from the one at or before c0
+      const int e = boff + (gy * W + gx) * C + c0, w0 = e & ~1;  // the run's first element and word
+      // a word that holds an element of the run lies in x's allocation
+      const bool ok = on && w0 + 2 * v < e + min(K::DC, C - c0);
+      tc::cp4(buf + pix * K::DCS + 2 * v, ok ? x + w0 + 2 * v : x, ok);
+    } else {
+      const bf16* xb = x + boff;
+      const int c = c0 + 8 * v;
+      const bool ok = on && c < C;
+      tc::cp16(buf + pix * K::DCS + 8 * v, ok ? xb + ((long long)gy * W + gx) * C + c : xb, ok);
+    }
+  }
+}
+
+// x, out (B, H, W, C) bf16; w2p the zero-padded bf16 w2^T (rows: output
+// channels, row stride ldw). Block blockIdx.x: image rows y0 .. y0 + NR of
+// image b, columns x0 .. x0 + WT, all output channels.
+template <class K, int V>
+__global__ void __launch_bounds__(NT, 1) nhwc_tc_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ dw, const float* __restrict__ db,
+    const bf16* __restrict__ w2p, const float* __restrict__ b2, bf16* __restrict__ out, int H, int W, int C,
+    int ldw, int nseg, int nrb) {
+  constexpr int WT = K::WT, NR = K::NR, KC = K::KC, R = K::R;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kt = K::t_cols(C), TS = kt + 8, kp = (C + KC - 1) / KC * KC;
+  bf16* ts = reinterpret_cast<bf16*>(smem);  // t [N][TS]: rows pixels, cols input channels
+  bf16* reg = ts + K::N * TS;                // phase 1: [SDEPTH][CHUNK]; phase 2: [DEPTH][STAGE]
+  constexpr int REGION = DEPTH * K::STAGE > NHWC_SDEPTH * K::CHUNK ? DEPTH * K::STAGE : NHWC_SDEPTH * K::CHUNK;
+  bf16* os = reg + REGION;                   // [N][nbw]: an output chunk
+
+  const int seg = blockIdx.x % nseg, rb = blockIdx.x / nseg % nrb, b = blockIdx.x / nseg / nrb;
+  const int x0 = seg * WT, y0 = rb * NR;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int boff = b * H * W * C;
+
+  // Phase 1. A thread: channels c0 + 2 cp, + 1 of each chunk, output columns
+  // R j .. R j + 3 of all NR rows (staged columns R j .. R j + 7).
+  const int cp = threadIdx.x % K::PAIRS, j = threadIdx.x / K::PAIRS;
+  const int nch = kt / K::DC;
+  nhwc_stage<K, V>(x, boff, reg, 0, y0, x0, H, W, C);
+  tc::cp_commit();
+  for (int ch = 0; ch < nch; ++ch) {
+    const int c0 = ch * K::DC, c = c0 + 2 * cp;
+    float w[2][KS * KS + 1];  // the pair's taps and biases, loaded before the wait
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int t = 0; t < KS * KS; ++t) w[h][t] = c + h < C ? __ldg(dw + t * C + c + h) : 0.f;
+      w[h][KS * KS] = c + h < C ? __ldg(db + c + h) : 0.f;
+    }
+    tc::cp_wait<0>();  // chunk ch has landed
+    __syncthreads();   // ... for every thread, and chunk ch - 1's buffer is free
+    if (ch + 1 < nch)
+      nhwc_stage<K, V>(x, boff, reg + ((ch + 1) % NHWC_SDEPTH) * K::CHUNK, c0 + K::DC, y0, x0, H, W, C);
+    tc::cp_commit();
+
+    const bool live = c < C && x0 + R * j < W;
+    float acc[NR][R][2];
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+#pragma unroll
+      for (int i = 0; i < R; ++i) acc[r][i][0] = acc[r][i][1] = 0.f;
+    if (live) {
+      const bf16* src = reg + (ch % NHWC_SDEPTH) * K::CHUNK + R * j * K::DCS + 2 * cp;
+      // V = 4: staged pixel (sr, s) starts odd when its first element's index
+      // in x is odd (off the image it is zeros either way)
+      const int par0 = (boff + ((y0 - P) * W + x0 - P + R * j) * C + c0) & 1, prow = (W * C) & 1, pcol = C & 1;
+#pragma unroll
+      for (int sr = 0; sr < K::SR; ++sr) {  // each staged row feeds up to 5 output rows
+        float row[R + 2 * P][2];
+#pragma unroll
+        for (int s = 0; s < R + 2 * P; ++s) {
+          const uint32_t* wp = reinterpret_cast<const uint32_t*>(src + (sr * K::SWC + s) * K::DCS);
+          uint32_t u = wp[0];
+          if constexpr (V == 4) {
+            if ((par0 + sr * prow + s * pcol) & 1) u = __byte_perm(u, wp[1], 0x5432);
+          }
+          row[s][0] = __uint_as_float(u << 16);
+          row[s][1] = __uint_as_float(u & 0xffff0000u);
+        }
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {
+          const int u = sr - r;
+          if (u < 0 || u >= KS) continue;
+#pragma unroll
+          for (int v = 0; v < KS; ++v)
+#pragma unroll
+            for (int i = 0; i < R; ++i)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) acc[r][i][h] = fmaf(row[i + v][h], w[h][u * KS + v], acc[r][i][h]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+#pragma unroll
+      for (int i = 0; i < R; ++i)  // zero past C (staged words hold the next pixel there) and past the image
+        *reinterpret_cast<uint32_t*>(ts + (r * WT + R * j + i) * TS + c) =
+            live ? roma::pack_bf16(fmaxf(acc[r][i][0] + w[0][KS * KS], 0.f),
+                                   c + 1 < C ? fmaxf(acc[r][i][1] + w[1][KS * KS], 0.f) : 0.f)
+                 : 0u;
+  }
+  __syncthreads();  // t is complete, and the staged chunks' region is free for the ring
+
+  // Phase 2: out[p, d] = sum_c t[p, c] w2p[d, c] + b2[d] for each chunk of
+  // NB output channels; ring stage i: chunk i / nk, input channels
+  // (i % nk) KC .., in buffer i % DEPTH, loaded DEPTH - 1 tiles ahead.
+  const int nm = (C + K::NB - 1) / K::NB, nk = kp / KC, nst = nm * nk;
+  int l_slot = 0, l_k = 0, l_m = 0;  // the next tile to load
+  auto load_next = [&]() {
+    bf16* dst = reg + l_slot * K::STAGE;
+    const bf16* src = w2p + (l_m * K::NB) * ldw + l_k * KC;
+#pragma unroll
+    for (int jj = threadIdx.x; jj < K::NB * KC / 8; jj += NT) {
+      const int r = jj / (KC / 8), cc = jj % (KC / 8) * 8;
+      tc::cp16(dst + r * K::RS + cc, src + r * ldw + cc, true);
+    }
+    l_slot = l_slot + 1 == DEPTH ? 0 : l_slot + 1;
+    if (++l_k == nk) l_k = 0, ++l_m;
+  };
+  for (int i = 0; i < DEPTH - 1; ++i) {
+    if (i < nst) load_next();
+    tc::cp_commit();
+  }
+  const int g = lane / 4, q = lane % 4, wm = warp % K::WM, wn = warp / K::WM;
+  const int m0 = 32 * wn, n0 = 32 * wm;  // the warp's pixels (one image row) and output channels
+  const bool active = y0 + m0 / WT < H && x0 + m0 % WT < W;
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
+  const bf16* arow = ts + (m0 + (lane & 15)) * TS + ((lane >> 4) << 3);  // this lane's ldmatrix row
+  int c_slot = 0, c_k = 0, c_m = 0;  // the tile to compute
+  for (int i = 0; i < nst; ++i) {
+    tc::cp_wait<DEPTH - 2>();
+    __syncthreads();
+    if (i + DEPTH - 1 < nst) load_next();
+    tc::cp_commit();
+    const bf16* wt = reg + c_slot * K::STAGE;
+    const int kb = c_k * KC;
+    if (active) {  // pixels past the image's last column have t = 0
+      constexpr int KK = KC / 16;
+      uint32_t a[KK][2][4], bq[KK][2][4];  // the stage's fragments, loaded before its products
+#pragma unroll
+      for (int k = 0; k < KK; ++k) {
+        tc::ldsm4(a[k][0], arow + kb + 16 * k);
+        tc::ldsm4(a[k][1], arow + 16 * TS + kb + 16 * k);
+        tc::frag_b<KC>(bq[k][0], wt, n0, 16 * k);
+        tc::frag_b<KC>(bq[k][1], wt, n0 + 16, 16 * k);
+      }
+#pragma unroll
+      for (int k = 0; k < KK; ++k)
+#pragma unroll
+        for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            tc::mma(acc[mi][2 * nj], a[k][mi], bq[k][nj][0], bq[k][nj][1]);
+            tc::mma(acc[mi][2 * nj + 1], a[k][mi], bq[k][nj][2], bq[k][nj][3]);
+          }
+    }
+    c_slot = c_slot + 1 == DEPTH ? 0 : c_slot + 1;
+    if (++c_k < nk) continue;
+    // the chunk's epilogue: bias, one rounding, staged [pixel][nbw], then
+    // written as runs (see the note above)
+    const int nb0 = c_m * K::NB, nbw = min(K::NB, C - nb0);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + 8 * nt + 2 * q + e;
+        if (n >= nbw) continue;
+        const float bias = __ldg(b2 + nb0 + n);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            os[(m0 + 16 * mi + g + 8 * h) * nbw + n] = __float2bfloat16(acc[mi][nt][2 * h + e] + bias);
+      }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
+    __syncthreads();
+    {
+      // runs: NR image rows of WT C elements when the chunk is all of C, else
+      // N pixels of nbw; each run as units of a head, 16-byte vectors, a tail
+      const bool rows = nbw == C;
+      const int nruns = rows ? NR : K::N, units = (rows ? WT * C : nbw) / 8 + 2;
+      for (int it = threadIdx.x; it < nruns * units; it += NT) {
+        const int run = it / units, u = it % units;
+        int gy, len;
+        long long e0;
+        const bf16* src;
+        if (rows) {
+          gy = y0 + run;
+          len = max(0, min(WT, W - x0)) * C;
+          e0 = (((long long)b * H + gy) * W + x0) * C;
+          src = os + run * WT * C;
+        } else {
+          const int gx = x0 + run % WT;
+          gy = y0 + run / WT;
+          len = gx < W ? nbw : 0;
+          e0 = (((long long)b * H + gy) * W + gx) * C + nb0;
+          src = os + run * nbw;
+        }
+        if (gy >= H || len == 0) continue;
+        const int head = min(len, (int)((8 - (e0 & 7)) & 7)), nv = (len - head) >> 3;
+        bf16* dst = out + e0;
+        if (u == 0) {
+          for (int k = 0; k < head; ++k) dst[k] = src[k];
+        } else if (u <= nv) {
+          const int s = head + 8 * (u - 1);
+          uint32_t wd[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            wd[k] = (uint32_t)__bfloat16_as_ushort(src[s + 2 * k]) |
+                    ((uint32_t)__bfloat16_as_ushort(src[s + 2 * k + 1]) << 16);
+          *reinterpret_cast<uint4*>(dst + s) = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+        } else if (u == nv + 1) {
+          for (int k = head + 8 * nv; k < len; ++k) dst[k] = src[k];
+        }
+      }
+    }
+    c_k = 0, ++c_m;
+  }
+}
+
+template <class K, int V>
+cudaError_t launch_nhwc(const bf16* x, const float* dw, const float* db, const bf16* w2p, int ldw,
+                        const float* b2, bf16* out, int B, int H, int W, int C, size_t smem, cudaStream_t s) {
+  auto kernel = nhwc_tc_kernel<K, V>;
+  cudaError_t err = roma::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int nseg = (W + K::WT - 1) / K::WT, nrb = (H + K::NR - 1) / K::NR;
+  const long long blocks = (long long)B * nrb * nseg;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, NT, smem, s>>>(x, dw, db, w2p, b2, out, H, W, C, ldw, nseg, nrb);
+  return cudaGetLastError();
+}
+
+template <int WT, int NR, int KC>
+bool try_nhwc(int C, int optin, const bf16* x, const float* dw, const float* db, const bf16* w2p, int ldw,
+              const float* b2, bf16* out, int B, int H, int W, cudaStream_t s, cudaError_t& err) {
+  using K = Nhwc<WT, NR, KC>;
+  const size_t smem = smem_nhwc<K>(C);
+  if (smem > (size_t)optin) return false;
+  err = C % 8 == 0 ? launch_nhwc<K, 8>(x, dw, db, w2p, ldw, b2, out, B, H, W, C, smem, s)
+                   : launch_nhwc<K, 4>(x, dw, db, w2p, ldw, b2, out, B, H, W, C, smem, s);
+  return true;
+}
+
+// The block's pixels as launch_hcw_tc picks them: the most whose t fits.
+int launch_nhwc_tc(const void* x, const void* dw, const void* db, const void* w2p, const void* b2, void* out,
+                   int B, int H, int W, int C, cudaStream_t s) {
+  const int ldw = (C + W2_COLS - 1) / W2_COLS * W2_COLS;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* xs = static_cast<const bf16*>(x);
+  const auto *dwf = static_cast<const float*>(dw), *dbf = static_cast<const float*>(db),
+             *b2f = static_cast<const float*>(b2);
+  const auto* w2 = static_cast<const bf16*>(w2p);
+  auto* os = static_cast<bf16*>(out);
+#define ROMA_NHWC_ARGS C, optin, xs, dwf, dbf, w2, ldw, b2f, os, B, H, W, s, err
+  if (!try_nhwc<64, 4, 48>(ROMA_NHWC_ARGS) && !try_nhwc<64, 2, 64>(ROMA_NHWC_ARGS) &&
+      !try_nhwc<32, 2, 64>(ROMA_NHWC_ARGS) && !try_nhwc<32, 1, 64>(ROMA_NHWC_ARGS))
+    err = cudaErrorInvalidValue;
+#undef ROMA_NHWC_ARGS
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // layout 0: x and out are (B, H, W, C) (Kernel I); 1: (B, H, C, W) (Kernel
 // J). path 0: the 8x8-tile kernel, w2 the folded f32 (C_in, C_out); path 1
-// (layout 1, bf16 only): the tensor-core kernel, w2 the folded w2^T rounded
-// to bf16 and zero-padded to (W2_ROWS, W2_COLS) multiples
-// (ops/wide_refiner.py:padded_w2t).
+// (layout 1, bf16 only): J's tensor-core kernel, path 2 (layout 0, bf16
+// only): I's, w2 for both the folded w2^T rounded to bf16 and zero-padded to
+// (W2_ROWS, W2_COLS) multiples (ops/wide_refiner.py:padded_w2t).
 extern "C" int roma_wide_refiner_block(const void* x, const void* dw, const void* db, const void* w2,
                                        const void* b2, void* out, int B, int H, int W, int C,
                                        int layout, int path, int dtype, void* stream) {
-  if (B < 1 || H < 1 || W < 1 || C < 1 || (layout != 0 && layout != 1) || (path != 0 && path != 1))
+  if (B < 1 || H < 1 || W < 1 || C < 1 || (layout != 0 && layout != 1) || path < 0 || path > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (path == 1) {
     if (layout != 1 || dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
     return launch_hcw_tc(x, dw, db, w2, b2, out, B, H, W, C, s);
+  }
+  if (path == 2) {
+    if (layout != 0 || dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_nhwc_tc(x, dw, db, w2, b2, out, B, H, W, C, s);
   }
   Dims d{H, W, C, (long long)H * W * C, 0, 0, 0};
   if (layout == 0) {

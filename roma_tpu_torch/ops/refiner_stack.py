@@ -12,11 +12,15 @@ register-blocked with its pointwise product on the tensor cores in bf16 at
 C = 24, K = 5 (the scale-1 stack), one thread per pixel at any other C <= 32
 and odd K; :func:`stack_checks` holds its argument contract. Kernel H
 (csrc/refiner_chain.cu, :func:`fused_refiner_stack_packed`) runs a group of
-blocks per launch, as roma_tpu/ops/pallas_refiner.py's packed kernel does.
+blocks per launch, as roma_tpu/ops/pallas_refiner.py's packed kernel does:
+D's design at C = 24, K = 5 in bf16, one thread per pixel otherwise;
+:func:`packed_checks` holds its contract.
 Their design notes are in the sources. A CPU tensor takes the plain version
 :func:`refiner_stack_reference`, the function of both.
 """
 from __future__ import annotations
+
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -135,6 +139,71 @@ def fused_refiner_stack(x: torch.Tensor, blocks: list[dict]) -> torch.Tensor:
 fused_refiner_stack.launches = 0
 
 
+# Kernel H's group sizes (blocks a launch): the c24k5 body's, and the
+# generic body's in bf16 and float32 (two f32 planes with a halo of 18 do
+# not fit a block's shared memory at 3)
+C24_GROUP = 2
+GENERIC_GROUP = {torch.bfloat16: 3, torch.float32: 2}
+PACKED_PATH_CODES = {"generic": 0, "c24k5": 1}
+INT_MAX = 2**31 - 1
+
+
+def packed_checks(what, x, blocks):
+    """Kernel H's argument contract, in one pass, before any launch: x
+    (B, H, W, C) of a supported dtype (TypeError otherwise), 1 <= C <=
+    MAX_C, under 2^31 elements; every folded block float32 dw (K, K, C) with
+    one odd K for all, db (C,), w2 (C, C), b2 (C,); every tensor contiguous
+    and on x's device (ValueError); x not requiring a gradient
+    (RuntimeError). Picks the body: "c24k5" for bfloat16 at C = VEC_C, K =
+    VEC_K (Kernel D's design over C24_GROUP blocks a launch; its 16-byte
+    loads need x's base 16-byte aligned, ValueError), else "generic"
+    (GENERIC_GROUP[dtype] blocks a launch). Returns (B, H, W, C, K, path,
+    group)."""
+    _ext.dtype_code(x, what)
+    if x.ndim != 4:
+        raise ValueError(f"{what}: x must be (B, H, W, C), got {tuple(x.shape)}")
+    b, h, w, c = x.shape
+    if not 1 <= c <= MAX_C:
+        raise ValueError(f"{what}: C={c} outside the kernel's 1..{MAX_C}")
+    if x.numel() > INT_MAX:
+        raise ValueError(f"{what}: x must hold under 2^31 elements, got {tuple(x.shape)}")
+    k = blocks[0]["dw"].shape[0] if blocks else VEC_K
+    for i, blk in enumerate(blocks):
+        ws = [blk[n] for n in _WEIGHTS]
+        shapes = [tuple(t.shape) for t in ws]
+        if (any(t.dtype != torch.float32 for t in ws) or shapes != [(k, k, c), (c,), (c, c), (c,)]
+                or k % 2 == 0):
+            raise ValueError(f"{what}: folded block {i} must be float32 dw (K, K, C) with one odd K for all "
+                             f"blocks (K={k}), db (C,), w2 (C, C), b2 (C,); got {shapes}")
+        if not all(t.is_contiguous() and t.device == x.device for t in ws):
+            raise ValueError(f"{what}: folded block {i} must be contiguous and on x's device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: x must be contiguous")
+    if x.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(f"{what}: forward-only kernel, no backward")
+    if x.dtype == torch.bfloat16 and (c, k) == (VEC_C, VEC_K):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{what}: the C={VEC_C}, K={VEC_K} body loads x by 16-byte vectors and needs its "
+                             f"base 16-byte aligned, got address {x.data_ptr()} % 16 = {x.data_ptr() % 16}")
+        return b, h, w, c, k, "c24k5", C24_GROUP
+    return b, h, w, c, k, "generic", GENERIC_GROUP[x.dtype]
+
+
+def packed_weights(blocks: list[dict]) -> list[torch.Tensor]:
+    """The blocks' dw, db, w2 and b2, each stacked over the blocks (Kernel
+    H's operands), made once and kept beside the list in its first block
+    (``blocks[0]["packed"]``, with a weak reference and the version counter
+    of every source tensor): remade when any source is another tensor or
+    was written to."""
+    srcs = [blk[n] for blk in blocks for n in _WEIGHTS]
+    kept = blocks[0].get("packed")
+    if (kept is None or len(kept[0]) != len(srcs)
+            or any(ref() is not t or ver != t._version for (ref, ver), t in zip(kept[0], srcs))):
+        stacked = [torch.stack([blk[n] for blk in blocks]) for n in _WEIGHTS]
+        kept = blocks[0]["packed"] = ([(weakref.ref(t), t._version) for t in srcs], stacked)
+    return kept[1]
+
+
 def fused_refiner_stack_packed(x: torch.Tensor, blocks: list[dict], s_rows: int = 32,
                                cg: int = 8) -> torch.Tensor:
     """The same chain as :func:`fused_refiner_stack`, several blocks per launch.
@@ -142,41 +211,33 @@ def fused_refiner_stack_packed(x: torch.Tensor, blocks: list[dict], s_rows: int 
     Kernel H (csrc/refiner_chain.cu) replaces
     roma_tpu/ops/pallas_refiner.py:_cmajor_packed_kernel (entry
     ``_fused_cmajor_packed``): one launch runs a group of blocks over a tile
-    with a halo of 2 pixels per block, the intermediate planes in shared
-    memory. ``s_rows`` (the tile's rows) and ``cg`` (the depthwise loop's
-    channel chunk, at most 8 on the card) are tiling knobs, as on the TPU:
-    they change nothing in the output. The function is the same as Kernel
-    D's, so a CPU tensor takes :func:`refiner_stack_reference`.
+    with a halo of K // 2 pixels per block, the intermediate planes in shared
+    memory; :func:`packed_checks` picks the body and the group. ``s_rows``
+    (the tile's rows) and ``cg`` (the depthwise loop's channel chunk, at
+    most 8 on the card) tile the generic body only, as on the TPU: they
+    change nothing in the output, and the c24k5 body, whose tile is fixed
+    in its source, ignores them. The function is the same as Kernel D's, so
+    a CPU tensor takes :func:`refiner_stack_reference`.
     """
     if s_rows < 1 or cg < 1:
         raise ValueError(f"fused_refiner_stack_packed: s_rows={s_rows} and cg={cg} must be >= 1")
     if x.device.type == "cpu":
         return refiner_stack_reference(x, blocks)
     what = "fused_refiner_stack_packed"
-    _ext.require_cuda(what, x)
-    b, h, w, c = x.shape
-    if c > MAX_C:
-        raise ValueError(f"{what}: C={c} above the kernel's {MAX_C}")
+    if not x.is_cuda:
+        raise ValueError(f"{what}: tensors must be on a CUDA device or the CPU, got {x.device}")
+    b, h, w, c, k, path, g = packed_checks(what, x, blocks)
     if not blocks:
         return x
-    k = blocks[0]["dw"].shape[0]
-    shapes = [tuple(blk[n].shape) for blk in blocks for n in ("dw", "db", "w2", "b2")]
-    if shapes != [(k, k, c), (c,), (c, c), (c,)] * len(blocks) or k % 2 == 0:
-        raise ValueError(f"{what}: folded blocks must be dw (K, K, C) with K odd, db (C,), "
-                         f"w2 (C, C), b2 (C,); got {shapes}")
-    ws = [torch.stack([blk[n] for blk in blocks]) for n in ("dw", "db", "w2", "b2")]
-    _ext.require_cuda(what, x, *ws)
-    if any(t.dtype != torch.float32 for t in ws):
-        raise ValueError(f"{what}: folded blocks must be float32")
+    ws = packed_weights(blocks)
     code = _ext.dtype_code(x, what)
-    g = 3 if x.element_size() == 2 else 2  # blocks a launch; the entry picks the tile that fits
     lib = _ext.lib()
     for i in range(0, len(blocks), g):
         n = min(g, len(blocks) - i)
-        out = torch.empty_like(x)
+        out = torch.empty_like(x)  # a fresh allocation: 16-byte aligned
         rc = lib.roma_refiner_chain(
             x.data_ptr(), *(t[i].data_ptr() for t in ws), out.data_ptr(),
-            b, h, w, c, k, n, s_rows, cg, code, _ext.stream(),
+            b, h, w, c, k, n, s_rows, cg, code, PACKED_PATH_CODES[path], _ext.stream(),
         )
         _ext.check(rc, what)
         fused_refiner_stack_packed.launches += 1

@@ -35,12 +35,12 @@ def wide_refiner_stack_reference(x: torch.Tensor, blocks: list[dict]) -> torch.T
 
 
 W2_ROWS, W2_COLS = 256, 192  # the tensor-core path's w2^T padding (csrc/wide_refiner.cu)
-# the tensor-core path's widest C: t (C x 32 pixels, bf16) beside three w2
-# tiles of 256 x 64 in the 227 KB of shared memory an H100 block may take;
-# the C entry checks the device's own limit
+# the tensor-core paths' widest C: t (C x 32 pixels, bf16) beside three w2
+# tiles of 256 x 64 (and I's 16 KB output chunk) in the 227 KB of shared
+# memory an H100 block may take; the C entry checks the device's own limit
 HCW_TC_MAX_C = 1472
 INT_MAX = 2**31 - 1  # the tensor-core path indexes elements with 32-bit ints
-PATH_CODES = {"tile8x8": 0, "hcw_tc": 1}
+PATH_CODES = {"tile8x8": 0, "hcw_tc": 1, "nhwc_tc": 2}
 _WEIGHTS = ("dw", "db", "w2", "b2")
 
 
@@ -50,11 +50,14 @@ def wide_block_checks(what, x, blk, layout):
     layout 0 (I) or (B, H, C, W) for layout 1 (J); the folded block float32
     dw (5, 5, C), db (C,), w2 (C, C), b2 (C,); every tensor contiguous and
     on x's device (ValueError); x not requiring a gradient (RuntimeError).
-    Picks the path: "hcw_tc" for layout 1 in bfloat16 (the tensor-core
-    kernel; C <= HCW_TC_MAX_C and x under 2^31 elements, and x's base
-    8-byte aligned at W % 4 == 0 and 4-byte aligned at an even W, whose rows
-    it copies by 8-byte vectors or element pairs), else "tile8x8". Returns
-    (B, H, W, C, path)."""
+    Picks the path: in bfloat16 the tensor-core kernels, C <= HCW_TC_MAX_C
+    and x under 2^31 elements: "hcw_tc" for layout 1 (x's base 8-byte
+    aligned at W % 4 == 0 and 4-byte aligned at an even W, whose rows it
+    copies by 8-byte vectors or element pairs), "nhwc_tc" for layout 0 (x's
+    base 16-byte aligned at C % 8 == 0, whose pixels it copies by 16-byte
+    vectors, else 4-byte aligned, as it loads element pairs by aligned
+    words); "tile8x8" in float32 and for layout 0 above HCW_TC_MAX_C.
+    Returns (B, H, W, C, path)."""
     _ext.dtype_code(x, what)
     if x.ndim != 4 or layout not in (0, 1):
         raise ValueError(f"{what}: x must be 4-D and layout 0 or 1, got {tuple(x.shape)}, layout {layout}")
@@ -71,18 +74,20 @@ def wide_block_checks(what, x, blk, layout):
         raise ValueError(f"{what}: x and the folded block's dw, db, w2, b2 must be contiguous and on one device")
     if x.requires_grad and torch.is_grad_enabled():
         raise RuntimeError(f"{what}: forward-only kernel, no backward")
-    if layout == 0 or x.dtype != torch.bfloat16:
+    if x.dtype != torch.bfloat16 or (layout == 0 and c > HCW_TC_MAX_C):
         return b, h, w, c, "tile8x8"
     if c > HCW_TC_MAX_C or x.numel() > INT_MAX:
         raise ValueError(f"{what}: the tensor-core path takes C <= {HCW_TC_MAX_C} and under 2^31 elements, "
                          f"got {tuple(x.shape)}")
-    # it copies x's rows by 8-byte vectors when W % 4 == 0, by pairs when W is even
-    align = 8 if w % 4 == 0 else 4 if w % 2 == 0 else 1
+    if layout == 1:  # rows along W by 8-byte vectors when W % 4 == 0, by pairs when W is even
+        path, at, align = "hcw_tc", f"W = {w}", 8 if w % 4 == 0 else 4 if w % 2 == 0 else 1
+    else:  # pixels along C by 16-byte vectors when C % 8 == 0, else by aligned words
+        path, at, align = "nhwc_tc", f"C = {c}", 16 if c % 8 == 0 else 4
     if x.data_ptr() % align:
-        raise ValueError(f"{what}: at W = {w} the tensor-core path copies x's rows by {align}-byte vectors and "
+        raise ValueError(f"{what}: at {at} the tensor-core path copies x by {align}-byte vectors and "
                          f"needs its base {align}-byte aligned, got address {x.data_ptr()} % {align} = "
                          f"{x.data_ptr() % align}")
-    return b, h, w, c, "hcw_tc"
+    return b, h, w, c, path
 
 
 def padded_w2t(w2: torch.Tensor) -> torch.Tensor:
@@ -110,7 +115,7 @@ def _launch(what: str, x: torch.Tensor, blk: dict, layout: int):
     if not x.is_cuda:
         raise ValueError(f"{what}: tensors must be on a CUDA device or the CPU, got {x.device}")
     b, h, w, c, path = wide_block_checks(what, x, blk, layout)
-    w2 = block_w2t(blk) if path == "hcw_tc" else blk["w2"]
+    w2 = blk["w2"] if path == "tile8x8" else block_w2t(blk)
     out = torch.empty_like(x)
     rc = _ext.lib().roma_wide_refiner_block(
         x.data_ptr(), blk["dw"].data_ptr(), blk["db"].data_ptr(), w2.data_ptr(), blk["b2"].data_ptr(),
@@ -121,7 +126,8 @@ def _launch(what: str, x: torch.Tensor, blk: dict, layout: int):
 
 
 def lane_refiner_block(x: torch.Tensor, blk: dict) -> torch.Tensor:
-    """One folded block on NHWC x (B, H, W, C), any C: Kernel I."""
+    """One folded block on NHWC x (B, H, W, C), any C: Kernel I (in
+    bfloat16 on the tensor cores, C <= HCW_TC_MAX_C)."""
     if x.device.type == "cpu":
         return wide_refiner_stack_reference(x, [blk])
     out = _launch("lane_refiner_block", x, blk, 0)

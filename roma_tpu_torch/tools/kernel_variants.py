@@ -1,20 +1,23 @@
-"""Variants of Kernels B, C, D and J timed against the sources as they stand.
+"""Variants of Kernels B, C, D, H, I and J timed against the sources as they stand.
 
     python3 -m roma_tpu_torch.tools.kernel_variants [--only NAME ...]
 
 Each variant is a copy of ``csrc/local_corr.cu``, ``csrc/warp_sample.cu``,
-``csrc/refiner_stack.cu`` or ``csrc/wide_refiner.cu`` with named text
-replaced (VARIANTS), built alone by nvcc into
-``build/kernel_variants/<name>.so`` (all builds in parallel) and called
-through its C entry on bf16 inputs at the shapes chip_smoke.py gives the
-kernel (B's five local-correlation scales, C's nine x_hat lookups, D's
-9-block scale-1 stacks at 560^2 and 864^2, J's seven 9-block wide-C stacks
-(B, H, C, W); B = 2). For each it prints the device time of each shape
-(calls captured in a CUDA graph and replayed, the median over replays),
-their sum, and the largest difference from the plain version; then the
-card line. The variants are the choices the redesigns of B, C, D and J
-weighed; "b", "c", "d" and "j" are the sources unchanged. Needs a CUDA card
-and nvcc.
+``csrc/refiner_stack.cu``, ``csrc/refiner_chain.cu`` or
+``csrc/wide_refiner.cu`` with named text replaced (VARIANTS), built alone by
+nvcc into ``build/kernel_variants/<name>.so`` (all builds in parallel) and
+called through its C entry on bf16 inputs at the shapes chip_smoke.py gives
+the kernel (B's five local-correlation scales, C's nine x_hat lookups, D's
+and H's 9-block scale-1 stacks at 560^2 and 864^2, the same inputs for
+both; I's and J's seven 9-block wide-C stacks, NHWC for I, (B, H, C, W)
+for J; B = 2). For each it prints the device time of each shape (calls
+captured in a CUDA graph and replayed, the median over replays), their
+sum, and the largest difference from the plain version; then the card
+line. The variants are the choices the redesigns weighed; "b", "c", "d",
+"h", "i" and "j" are the sources unchanged. H's group size is an argument
+of its entry (H_GROUPS). "i_permute_j" is the yardstick for I: x permuted
+to (B, H, C, W), J's chain, the result permuted back, all in the timed
+call. Needs a CUDA card and nvcc.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch.nn.functional as F
 
 from .. import _ext, ops
 from ..ops.local_corr import corr_checks
+from ..ops.refiner_stack import C24_GROUP, packed_weights
 from ..ops.warp_sample import PATH_CODES, warp_sample_checks
 from ..ops.wide_refiner import block_w2t
 from . import card_line, cuda_ms, require_card
@@ -62,6 +66,17 @@ VARIANTS = {
     "j_tile64_at_c144": ("wide_refiner.cu", [("try_hcw<64, 4, 48>", "try_hcw<64, 4, 64>")]),
     "j_depth2": ("wide_refiner.cu", [("constexpr int DEPTH = 3;", "constexpr int DEPTH = 2;")]),
     "j_no_8byte_staging": ("wide_refiner.cu", [("err = W % 4 == 0   ?", "err = false ?")]),
+    # I: the permute + J + permute yardstick, no 2 x 32 block at C = 1137
+    # (the shared-memory limit on the pixels a block)
+    "i": ("wide_refiner.cu", []),
+    "i_permute_j": ("wide_refiner.cu", []),
+    "i_no_2x32": ("wide_refiner.cu", [("!try_nhwc<32, 2, 64>(ROMA_NHWC_ARGS) && ", "")]),
+    # H: blocks a launch (H_GROUPS) and the tile's rows (16 or 32)
+    "h": ("refiner_chain.cu", []),
+    "h_g1": ("refiner_chain.cu", []),
+    "h_g3": ("refiner_chain.cu", []),
+    "h_rows32": ("refiner_chain.cu", [("constexpr int TH = 16;", "constexpr int TH = 32;")]),
+    "h_g3_rows32": ("refiner_chain.cu", [("constexpr int TH = 16;", "constexpr int TH = 32;")]),
     # J's two phases alone (timing probes: the output is wrong)
     "j_probe_depthwise_only": ("wide_refiner.cu", [("for (int i = 0; i < nst; ++i) {", "for (int i = 0; i < 0; ++i) {")]),
     "j_probe_product_only": ("wide_refiner.cu", [("for (int ch = 0; ch < nch; ++ch) {", "for (int ch = 0; ch < 0; ++ch) {")]),
@@ -79,6 +94,8 @@ WIDE_SHAPES = (("coarse s16 35^2 C1377", 35, 1377), ("coarse s8 70^2 C1137", 70,
 CORR_SHAPES = (("coarse s16 40^2 C512 r7", 40, 512, 7), ("coarse s8 70^2 C512 r3", 70, 512, 3),
                ("coarse s4 140^2 C256 r2", 140, 256, 2), ("upsample s8 108^2 C512 r3", 108, 512, 3),
                ("upsample s4 216^2 C256 r2", 216, 256, 2))
+# H's variants' blocks a launch (default: ops.refiner_stack.C24_GROUP)
+H_GROUPS = {"h_g1": 1, "h_g3": 3, "h_g3_rows32": 3}
 P, I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -181,7 +198,71 @@ def wide_cases(gen):
     return out
 
 
-def warp_call(lib, args, out):
+def lane_cases(gen):
+    """wide_cases' stacks on NHWC x (Kernel I)."""
+    return [(label, (x.permute(0, 1, 3, 2).contiguous(), blocks), ref.permute(0, 1, 3, 2).contiguous())
+            for label, (x, blocks), ref in wide_cases(gen)]
+
+
+def wide_chain(lib, x, blocks, out, layout, path):
+    """A call running the 9-block chain through roma_wide_refiner_block,
+    the last block into out."""
+    b, h = x.shape[:2]
+    c, w = (x.shape[2], x.shape[3]) if layout == 1 else (x.shape[3], x.shape[2])
+    fn = lib.roma_wide_refiner_block
+    fn.argtypes, fn.restype = [P] * 6 + [I] * 7 + [P], I
+    bufs = (out, torch.empty_like(x))
+    w2s = [block_w2t(blk) for blk in blocks]  # made once, outside the timed calls, as the wrapper keeps them
+
+    def call():
+        y = x
+        for i, (blk, w2) in enumerate(zip(blocks, w2s)):
+            o = bufs[(i + len(blocks) + 1) % 2]  # the last block lands in out
+            if fn(y.data_ptr(), blk["dw"].data_ptr(), blk["db"].data_ptr(), w2.data_ptr(), blk["b2"].data_ptr(),
+                  o.data_ptr(), b, h, w, c, layout, path, 1, _ext.stream()):
+                raise RuntimeError("roma_wide_refiner_block failed")
+            y = o
+        return y
+    return call
+
+
+def lane_call(lib, args, out, name):
+    x, blocks = args
+    if name != "i_permute_j":
+        return wide_chain(lib, x, blocks, out, 0, 2)
+    xt = torch.empty_like(x.permute(0, 1, 3, 2), memory_format=torch.contiguous_format)
+    hcw = wide_chain(lib, xt, blocks, torch.empty_like(xt), 1, 1)
+
+    def call():  # x to (B, H, C, W), J's chain, back to NHWC
+        xt.copy_(x.permute(0, 1, 3, 2))
+        out.copy_(hcw().permute(0, 1, 3, 2))
+        return out
+    return call
+
+
+def chain_call(lib, args, out, name):
+    x, blocks = args
+    b, h, w, c = x.shape
+    g = H_GROUPS.get(name, C24_GROUP)
+    fn = lib.roma_refiner_chain
+    fn.argtypes, fn.restype = [P] * 6 + [I] * 10 + [P], I
+    ws = packed_weights(blocks)
+    launches = -(-len(blocks) // g)
+    bufs = (out, torch.empty_like(x))
+
+    def call():
+        y = x
+        for j, i in enumerate(range(0, len(blocks), g)):
+            o = bufs[(j + launches + 1) % 2]  # the last launch lands in out
+            if fn(y.data_ptr(), *(t[i].data_ptr() for t in ws), o.data_ptr(), b, h, w, c, 5,
+                  min(g, len(blocks) - i), 32, 8, 1, 1, _ext.stream()):
+                raise RuntimeError("roma_refiner_chain failed")
+            y = o
+        return y
+    return call
+
+
+def warp_call(lib, args, out, name):
     y, w = args
     b, h, ww, c, hq, wq, path = warp_sample_checks("kernel_variants", y, w)
     fn = lib.roma_warp_sample
@@ -195,27 +276,12 @@ def warp_call(lib, args, out):
     return call
 
 
-def wide_call(lib, args, out):
+def wide_call(lib, args, out, name):
     x, blocks = args
-    b, h, c, w = x.shape
-    fn = lib.roma_wide_refiner_block
-    fn.argtypes, fn.restype = [P] * 6 + [I] * 7 + [P], I
-    bufs = (out, torch.empty_like(x))
-    w2s = [block_w2t(blk) for blk in blocks]  # made once, outside the timed calls, as the wrapper keeps them
-
-    def call():
-        y = x
-        for i, (blk, w2) in enumerate(zip(blocks, w2s)):
-            o = bufs[(i + len(blocks) + 1) % 2]  # the last block lands in out
-            if fn(y.data_ptr(), blk["dw"].data_ptr(), blk["db"].data_ptr(), w2.data_ptr(), blk["b2"].data_ptr(),
-                  o.data_ptr(), b, h, w, c, 1, 1, 1, _ext.stream()):
-                raise RuntimeError("roma_wide_refiner_block failed")
-            y = o
-        return y
-    return call
+    return wide_chain(lib, x, blocks, out, 1, 1)
 
 
-def corr_call(lib, args, out):
+def corr_call(lib, args, out, name):
     f0, f1, r, w = args
     b, h, ww, c, nv = corr_checks("kernel_variants", f0, f1, r, w)
     fn = lib.roma_local_corr
@@ -229,7 +295,7 @@ def corr_call(lib, args, out):
     return call
 
 
-def stack_call(lib, args, out):
+def stack_call(lib, args, out, name):
     x, blocks = args
     b, h, w, c = x.shape
     fn = lib.roma_refiner_block
@@ -257,18 +323,20 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(build, names)))
     gen = torch.Generator(device="cuda").manual_seed(0)
-    makers = {"local_corr.cu": (corr_cases, corr_call), "warp_sample.cu": (warp_cases, warp_call),
-              "refiner_stack.cu": (stack_cases, stack_call), "wide_refiner.cu": (wide_cases, wide_call)}
+    # a variant's kernel is the letter before its first "_"; D and H share
+    # their inputs
+    makers = {"b": (corr_cases, corr_call), "c": (warp_cases, warp_call), "d": (stack_cases, stack_call),
+              "h": (stack_cases, chain_call), "i": (lane_cases, lane_call), "j": (wide_cases, wide_call)}
     cases = {}
     for name in names:
         lib = ctypes.CDLL(str(libs[name].resolve()))
-        source = VARIANTS[name][0]
-        if source not in cases:  # inputs made once a source, only for the sources asked for
-            cases[source] = (makers[source][0](gen), makers[source][1])
-        shapes, make = cases[source]
+        inputs, make = makers[name.split("_")[0]]
+        if inputs not in cases:  # inputs made once, only for the kernels asked for
+            cases[inputs] = inputs(gen)
+        shapes = cases[inputs]
         total, err = 0.0, 0.0
         for label, args, ref in shapes:
-            call = make(lib, args, torch.empty_like(ref))
+            call = make(lib, args, torch.empty_like(ref), name)
             got = call()
             torch.cuda.synchronize()
             err = max(err, (got.float() - ref.float()).abs().max().item())

@@ -1,7 +1,8 @@
 """The card run's own checks, on the CPU: chip_smoke.py's spill gate on a
 ptxas report, the bf16 ulp its bars count in, the planted faults of Kernels
-D, B, C and J's plain versions breaking their ulp bar, the edge shapes'
-coverage, and where the build keeps the report it reads."""
+D, B, C, J, I and H's plain versions breaking their ulp bar, the edge
+shapes' coverage and the paths they take, H's bound, and where the build
+keeps the report it reads."""
 import os
 import sys
 
@@ -86,10 +87,18 @@ def _planted_cases():
     x = rn(2, 12, 14, 40)
     out.append(("hcw_refiner_block", ops.wide_refiner_stack_reference(x, blocks),
                 chip_smoke.refiner_edge_clamped(x, blocks, round_w2=True)))
+    blocks = chip_smoke.refiner_blocks(gen, 37, 3, device="cpu")
+    x = rn(2, 12, 14, 37)
+    out.append(("lane_refiner_block", ops.wide_refiner_stack_reference(x, blocks),
+                chip_smoke.refiner_edge_clamped(x, blocks, round_w2=True)))
+    blocks = chip_smoke.refiner_blocks(gen, device="cpu")
+    x = rn(2, 21, 19, 24)
+    out.append(("fused_refiner_stack_packed", ops.refiner_stack_reference(x, blocks),
+                chip_smoke.refiner_edge_clamped(x, blocks)))
     return out
 
 
-@pytest.mark.parametrize("i", range(6))
+@pytest.mark.parametrize("i", range(8))
 def test_planted_faults_break_the_ulp_bar(i, capsys):
     name, ref, wrong = _planted_cases()[i]
     chip_smoke.check_power(name, "cpu", "", ref, wrong, chip_smoke.FAULTS[name])
@@ -156,3 +165,76 @@ def test_j_edges_cover_what_they_claim():
         x = torch.zeros(b, h, c, w, dtype=torch.bfloat16)
         assert wide_block_checks("t", x, chip_smoke.refiner_blocks(torch.Generator(), c, 1, device="cpu")[0],
                                  1)[-1] == "hcw_tc"
+
+
+def test_planted_fault_of_h_changes_only_the_padding():
+    """D and H's fault (edge clamping, w2 kept float32) is the plain version
+    where every t is 0, and differs from it only near the border otherwise."""
+    gen = torch.Generator().manual_seed(5)
+    blocks = chip_smoke.refiner_blocks(gen, device="cpu")
+    x = torch.randn(1, 20, 23, 24, generator=gen).bfloat16()
+    ref, wrong = ops.refiner_stack_reference(x, blocks), chip_smoke.refiner_edge_clamped(x, blocks)
+    moved = (ref.float() - wrong.float()).abs().amax(-1)[0]
+    halo = 2 * len(blocks)  # a block's padding reaches 2 pixels further in
+    assert moved.any() and not moved[halo:-halo, halo:-halo].any()
+    for blk in blocks:
+        blk["db"].fill_(-1e3)
+    assert torch.equal(chip_smoke.refiner_edge_clamped(x, blocks), ops.refiner_stack_reference(x, blocks))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_i_edges_cover_what_they_claim(dtype):
+    from roma_tpu_torch.ops.wide_refiner import wide_block_checks
+
+    edges = chip_smoke.I_EDGES
+    cs = {c for *_, c in edges}
+    assert {1377, 1137, 569, 144} <= cs and any(c % 2 for c in cs) and any(c % 2 == 0 and c % 8 for c in cs)
+    assert any(h < 5 for _, h, _, _ in edges) and any(b == 1 for b, *_ in edges)
+    assert any(w % 32 for *_, w, _ in edges) and any(w % 64 and w > 64 for *_, w, _ in edges)
+    for b, h, w, c in edges:
+        x = torch.zeros(b, h, w, c, dtype=dtype)
+        blk = chip_smoke.refiner_blocks(torch.Generator(), c, 1, device="cpu")[0]
+        assert wide_block_checks("t", x, blk, 0)[-1] == ("nhwc_tc" if dtype == torch.bfloat16 else "tile8x8")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_h_edges_cover_what_they_claim(dtype):
+    from roma_tpu_torch.ops.refiner_stack import C24_GROUP, packed_checks
+
+    edges = chip_smoke.H_EDGES
+    c24 = [(b, h, w) for b, h, w, c, k in edges if (c, k) == (24, 5)]
+    assert any(w % _c24_tile_columns() for _, _, w in c24) and any(w < _c24_tile_columns() for _, _, w in c24)
+    assert any(h < 5 for _, h, _ in c24) and any(b == 1 for b, _, _ in c24)
+    assert any(c % 2 for *_, c, _ in edges) and any(c % 8 and c % 2 == 0 for *_, c, _ in edges)
+    assert 5 % C24_GROUP  # the five blocks end on a partial group
+    for b, h, w, c, k in edges:
+        x = torch.zeros(b, h, w, c, dtype=dtype)
+        path = packed_checks("t", x, chip_smoke.refiner_blocks(torch.Generator(), c, 5, k, device="cpu"))[-2]
+        assert path == ("c24k5" if dtype == torch.bfloat16 and (c, k) == (24, 5) else "generic")
+
+
+def _c24_tile_columns():
+    """The c24k5 body's tile columns at the group size it runs:
+    csrc/refiner_chain.cu tw_of(G) = 32 - 4 (G - 1)."""
+    from roma_tpu_torch.ops.refiner_stack import C24_GROUP
+
+    return 32 - 4 * (C24_GROUP - 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_h_bound_counts_what_its_body_does(dtype):
+    """packed_cost: the function reads x once and writes the output once,
+    besides the weights; in bf16 on the c24k5 body the pointwise counts at
+    the tensor cores' peak and the depthwise bounds it; in f32 both at the
+    CUDA cores'."""
+    blocks = chip_smoke.refiner_blocks(torch.Generator(), device="cpu")
+    x = torch.zeros(2, 56, 56, 24, dtype=dtype)
+    nbytes, pw, dwo, peak, path = chip_smoke.packed_cost(x, blocks)
+    assert nbytes == 2 * x.numel() * x.element_size() + 9 * 4 * (25 * 24 + 24 * 24 + 48)
+    assert (pw, dwo) == (2 * 9 * 2 * 56 * 56 * 576, 2 * 9 * 2 * 56 * 56 * 600)
+    assert (path, peak) == (("c24k5", chip_smoke.PEAK_BF16_TENSOR) if dtype == torch.bfloat16
+                            else ("generic", chip_smoke.PEAK_F32))
+    case = chip_smoke.Case("fused_refiner_stack_packed", "t", None, None, bytes=nbytes, ops=pw, peak=peak,
+                           f32_ops=dwo)
+    if dtype == torch.bfloat16:
+        assert case.ops_ms() == pytest.approx(1e3 * dwo / chip_smoke.PEAK_F32, rel=1e-12)

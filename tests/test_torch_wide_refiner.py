@@ -148,9 +148,11 @@ def _block(c):
     return {k: torch.from_numpy(v) for k, v in _blocks(c, 1)[0].items()}
 
 
-@pytest.mark.parametrize("layout,dtype,c,path", [(0, "bfloat16", 144, "tile8x8"), (0, "float32", 37, "tile8x8"),
+@pytest.mark.parametrize("layout,dtype,c,path", [(0, "bfloat16", 144, "nhwc_tc"), (0, "float32", 37, "tile8x8"),
                                                  (1, "float32", 144, "tile8x8"), (1, "bfloat16", 144, "hcw_tc"),
-                                                 (1, "bfloat16", 37, "hcw_tc"), (1, "bfloat16", 1377, "hcw_tc")])
+                                                 (1, "bfloat16", 37, "hcw_tc"), (1, "bfloat16", 1377, "hcw_tc"),
+                                                 (0, "bfloat16", 37, "nhwc_tc"), (0, "bfloat16", 1377, "nhwc_tc"),
+                                                 (0, "bfloat16", 1137, "nhwc_tc"), (0, "float32", 1377, "tile8x8")])
 def test_checks_pick_the_path(layout, dtype, c, path):
     shape = (2, 5, 12, c) if layout == 0 else (2, 5, c, 12)
     x = torch.zeros(shape, dtype=getattr(torch, dtype))
@@ -182,23 +184,30 @@ def test_checks_refuse_bad_blocks():
         wide_block_checks("t", x.half(), _block(40), 1)
 
 
-@pytest.mark.parametrize("w,align", [(10, 4), (11, 1), (12, 8)])
-def test_checks_refuse_a_misaligned_base_on_the_vector_paths(w, align):
-    """The tensor-core path copies x's rows by 8-byte vectors at W % 4 == 0
-    and by element pairs at an even W, and needs its base aligned to that;
-    at an odd W it loads elements one by one."""
-    c, blk = 40, _block(40)
+@pytest.mark.parametrize("layout,w,c,align", [(1, 10, 40, 4), (1, 11, 40, 1), (1, 12, 40, 8),
+                                              (0, 10, 40, 16), (0, 11, 37, 4), (0, 12, 569, 4), (0, 9, 144, 16)])
+def test_checks_refuse_a_misaligned_base_on_the_vector_paths(layout, w, c, align):
+    """J's tensor-core path (layout 1) copies x's rows by 8-byte vectors at
+    W % 4 == 0 and by element pairs at an even W, and needs its base aligned
+    to that; at an odd W it loads elements one by one. I's (layout 0) copies
+    a pixel's channels by 16-byte vectors at C % 8 == 0, else by the aligned
+    words around element pairs."""
+    blk = _block(c)
     flat = torch.zeros(6 * c * w + 16, dtype=torch.bfloat16)
-    view = lambda off: flat[off:off + 6 * c * w].view(1, 6, c, w)  # noqa: E731
+    shape = (1, 6, c, w) if layout == 1 else (1, 6, w, c)
+    view = lambda off: flat[off:off + 6 * c * w].view(shape)  # noqa: E731
     first = next(off for off in range(8) if view(off).data_ptr() % 16 == 0)
-    for off in range(1, 4):  # bases 2, 4 and 6 bytes past 16
+    path = "hcw_tc" if layout == 1 else "nhwc_tc"
+    for off in range(1, 8):  # bases 2 to 14 bytes past 16
         if 2 * off % align:
             with pytest.raises(ValueError, match=f"{align}-byte aligned"):
-                wide_block_checks("t", view(first + off), blk, 1)
+                wide_block_checks("t", view(first + off), blk, layout)
         else:
-            assert wide_block_checks("t", view(first + off), blk, 1)[-1] == "hcw_tc"
-    # the 8x8-tile path (layout 0) takes any base
-    assert wide_block_checks("t", flat[first + 1:first + 1 + 6 * c * w].view(1, 6, w, c), blk, 0)[-1] == "tile8x8"
+            assert wide_block_checks("t", view(first + off), blk, layout)[-1] == path
+    assert wide_block_checks("t", view(first), blk, layout)[-1] == path
+    # the 8x8-tile path (float32) takes any base
+    f32 = torch.zeros(6 * c * w + 4)[1:1 + 6 * c * w].view(shape)
+    assert wide_block_checks("t", f32, blk, layout)[-1] == "tile8x8"
 
 
 def test_checks_refuse_widths_past_the_tensor_core_path():
@@ -209,6 +218,9 @@ def test_checks_refuse_widths_past_the_tensor_core_path():
     with pytest.raises(ValueError, match="C <="):
         wide_block_checks("t", x, blk, 1)
     assert wide_block_checks("t", x.float(), blk, 1)[-1] == "tile8x8"
+    # Kernel I takes the 8x8-tile kernel above the tensor-core path's width
+    xl = torch.empty(1, 4, 8, c, dtype=torch.bfloat16, device="meta")
+    assert wide_block_checks("t", xl, blk, 0)[-1] == "tile8x8"
 
 
 @pytest.mark.parametrize("c", [37, 144, 300])
