@@ -63,9 +63,21 @@
    I_EDGES, H_EDGES), asserts the path each takes and refuses misaligned
    views; then Kernel K's two
    entries and Kernel L against their plain versions at
-   tools/bench_onehot_dots.py's sizes. After 8's caller run, drives
-   lane_refiner_stack, hcw_refiner_stack and the port tools' e1 / e2 once
-   as a caller does and counts I, J, K and L's launches.
+   tools/bench_onehot_dots.py's sizes: K's f32 entry and L to the f32 bar,
+   K's 2bf16 entry bit for bit, a planted fault in each plain version
+   (FAULTS: K's weights swapped, L's windows a row down) breaking the f32
+   bar; K timed beside F.grid_sample on its column 0 (onehot_library), L
+   beside one index_select + sum, with the expected rounding error of its
+   two-level sum (window_sum_rms_error). Then check_onehot_edges holds K at
+   K_EDGES (yl of -1, WH - 1 and past WH; T % 4 != 0; WH 5 and 300; one
+   tile) and L at L_EDGES (windows off the table give NaN; XQC = 8; NS = 1;
+   one tile; a row of 513 vectors), asserts the path each K case takes and
+   the NaN tiles of each L case, requires L's misaligned tab (base 2 bytes
+   off 16) refused, and holds K's misaligned yl and fy (4 and 8 bytes off,
+   T % 4 == 0) to its plain version on the scalar path, which they must
+   take. After 8's caller run,
+   drives lane_refiner_stack, hcw_refiner_stack and the port tools' e1 /
+   e2 once as a caller does and counts I, J, K and L's launches.
 10. Prints one JSON line of per-kernel results (each kernel's launches are
    counted over the phase of 4, 6, 7, 8 or 9 that runs it; its bound_ms is the
    least time the card could take for the same work, from the bytes each
@@ -446,13 +458,31 @@ def corr_fractions_swapped(f0, f1, radius, warp):
     return lc.bilinear_fold(lc.integer_tap_dots(f0, f1, radius, y0, x0), fx, fy).to(f0.dtype)
 
 
+def onehot_weights_swapped(win, yl, fy):
+    """onehot_dot_reference with one planted fault: the weights fy and
+    1 - fy swapped."""
+    from roma_tpu_torch import ops
+
+    return ops.onehot_dot_reference(win, yl, 1.0 - fy)
+
+
+def window_shifted_down(tab, oy, jx, img, wh, ns):
+    """window_sum_reference with one planted fault: each window one table
+    row further down."""
+    from roma_tpu_torch import ops
+
+    return ops.window_sum_reference(tab, oy + 1, jx, img, wh, ns)
+
+
 # what each Case.planted plants in its plain version
 FAULTS = {"fused_refiner_stack": "edge-clamped instead of zero padding",
           "local_correlation": "fractions fy and fx swapped",
           "warp_sample": "fractions fy and fx swapped",
           "hcw_refiner_block": "edge-clamped instead of zero padding",
           "lane_refiner_block": "edge-clamped instead of zero padding",
-          "fused_refiner_stack_packed": "edge-clamped instead of zero padding"}
+          "fused_refiner_stack_packed": "edge-clamped instead of zero padding",
+          "onehot_dot": "weights fy and 1 - fy swapped",
+          "window_sum": "each window shifted down one table row"}
 
 
 def kernel_cases(gen, dt):
@@ -551,16 +581,23 @@ def check_output(name, label, dt, k, p, what: str = "") -> float:
     return err
 
 
-def check_power(name, label, what, ref, wrong, fault: str = "softmax scale x1.02"):
-    """A bf16 ulp bar must be able to fail its kernel: the plain version
-    with one planted fault (``wrong``: for attention the softmax scale off
-    by 2%, else FAULTS[name]) must move by more than ULP_BARS[name] ulps of
-    the largest reference value."""
-    n = ULP_BARS[name]
+def check_power(name, label, what, ref, wrong, fault: str = "softmax scale x1.02", f32: bool = False):
+    """A bar must be able to fail its kernel: the plain version with one
+    planted fault (``wrong``: for attention the softmax scale off by 2%,
+    else FAULTS[name]) must move by more than the bar check_output holds
+    the kernel to: in bf16 ULP_BARS[name] ulps of the largest reference
+    value; with ``f32``, F32_REL of it (at least F32_REL)."""
     moved = (wrong.float() - ref.float()).abs().max().item()
-    bar = n * bf16_ulp(ref.float().abs().max().item())
-    print(f"{name:24s} {label:30s} bf16     {what}{fault} moves the plain version "
-          f"{moved:.3e} ({moved / bar * n:.1f} ulp, bar {n})", flush=True)
+    scale = ref.float().abs().max().item()
+    if f32:
+        bar = F32_REL * max(1.0, scale)
+        print(f"{name:24s} {label:30s} float32  {what}{fault} moves the plain version "
+              f"{moved:.3e} ({moved / bar:.1f} x the f32 bar {bar:.3e})", flush=True)
+    else:
+        n = ULP_BARS[name]
+        bar = n * bf16_ulp(scale)
+        print(f"{name:24s} {label:30s} bf16     {what}{fault} moves the plain version "
+              f"{moved:.3e} ({moved / bar * n:.1f} ulp, bar {n})", flush=True)
     require(moved > bar, f"{name} {label} {what}: the bar would pass a planted fault ({fault})")
 
 
@@ -1674,12 +1711,56 @@ def check_wide_edges():
             raise SmokeFailure(f"misaligned view accepted: {what}")
 
 
+def onehot_library(win, yl, fy):
+    """Kernel K's library call: F.grid_sample on a float32 copy of column 0
+    as (NT, 1, WH, 1), bilinear, zeros padding, align_corners=True, at
+    x = -1 and y = 2 (yl + fy) / (WH - 1) - 1, i.e. at row yl + fy (copy
+    and grid made here, outside the timed call). Not bitwise equal to the
+    plain version: yl + fy rounds in float32."""
+    import torch
+    import torch.nn.functional as F
+
+    nt, wh, _ = win.shape
+    col = win[:, :, 0].float().reshape(nt, 1, wh, 1)
+    gy = 2.0 * (yl.float() + fy) / (wh - 1) - 1.0
+    grid = torch.stack((torch.full_like(gy, -1.0), gy), -1)  # (NT, 1, T, 2)
+    return lambda: F.grid_sample(col, grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=True).view(nt, 1, -1)
+
+
+def window_sum_rms_error(xqc: int, wh: int, ns: int, mean_sq: float) -> float:
+    """The expected (rms) rounding error of Kernel L's float32 sum of one
+    tile, a random-walk estimate: each float32 addition rounds its result s
+    by an independent relative error of rms u / sqrt(3) (u = 2^-24), and a
+    partial sum of m zero-mean terms has E[s^2] = m E[x^2], so E[err^2] =
+    u^2 / 3 E[x^2] sum_k m_k over the additions. The kernel's additions
+    (csrc/onehot_dots.cu): a row's lanes each add their values in order (8 a
+    16-byte vector, vectors l, l + 32, ...) and 5 shuffle levels join the 32
+    lanes; a tile's lanes each add their row sums in order (rows l, l + 32,
+    ...) and 5 levels join them. ``mean_sq`` is E[x^2] of the table."""
+    def dealt(n):  # items a lane takes when n are dealt to 32 lanes in turn
+        return [n // 32 + (lane < n % 32) for lane in range(32)]
+
+    # lane-sequential partial sums hold m = 2, 3, ... terms (the first
+    # addition, 0 + x, is exact); each shuffle level adds all n terms once
+    row = sum(m for k in dealt(xqc // 8) for m in range(2, 8 * k + 1)) + 5 * xqc
+    rows = wh * ns
+    tile = rows * row + xqc * sum(m for k in dealt(rows) for m in range(2, k + 1)) + 5 * rows * xqc
+    return 2.0 ** -24 * math.sqrt(tile * mean_sq / 3.0)
+
+
 def check_onehot_kernels(results):
     """Kernel K's two entries and Kernel L against their plain versions on
-    tools/bench_onehot_dots.py's inputs at its sizes; L's time beside one
-    index_select of the window rows and a float32 sum. K's bound counts one
-    32-byte sector per window row its taps touch, L's the table rows its
-    windows cover, each once (the windows overlap)."""
+    tools/bench_onehot_dots.py's inputs at its sizes: K's f32 entry to the
+    f32 bar, its 2bf16 entry bit for bit, beside F.grid_sample computing the
+    same function (onehot_library); L to the f32 bar, beside the expected
+    rounding error of its two-level sum (window_sum_rms_error) and one
+    index_select of the window rows and a float32 sum. A planted fault in
+    each plain version (FAULTS) must break the f32 bar. K's bound counts
+    one 32-byte sector per window row its taps touch, L's the table rows its
+    windows cover, each once (the windows overlap). The memory's own rate on
+    each kernel's traffic is printed beside it: one torch.add moving K's
+    12 bytes a query, one tab.sum() reading L's whole table."""
     import torch
 
     from roma_tpu_torch import ops
@@ -1694,17 +1775,29 @@ def check_onehot_kernels(results):
     rows = torch.where((rows >= 0) & (rows < bo.WH), rows, bo.WH)
     touched.scatter_(1, rows.view(win.shape[0], -1), True)
     sectors = int(touched[:, : bo.WH].sum())
+    library = onehot_library(win, yl, fy)
+    label = f"E1 NT{win.shape[0]} x {yl.shape[-1]}"
     r = results["onehot_dot"]
     r["entries"] = []
     for form, entry, rep in ONEHOT_ENTRIES:
         case = Case("onehot_dot", f"E1 {form} NT3136 x 4096", lambda f=entry: getattr(ops, f)(win, yl, fy),
                     lambda: ops.onehot_dot_reference(win, yl, fy), bytes=12 * nq + 32 * sectors,
-                    ops=3 * nq)
-        err = check_output(case.name, case.label, torch.float32, case.kern(), case.plain())
+                    ops=3 * nq, library=library)
+        check = check_bits if form == "2bf16" else check_output
+        err = check(case.name, case.label, torch.float32, case.kern(), case.plain())
         ms, pms = record(r, err, case, "bf16 win")
         r["entries"].append({"entry": entry, "replaces": rep, "ms": ms, "plain_ms": pms, "max_abs_err": err})
-    print(f"{'':26s} {'E1':30s} column-0 sectors touched {sectors} of {win.shape[0] * bo.WH}", flush=True)
-    del win, yl, fy, touched, rows
+    ref = ops.onehot_dot_reference(win, yl, fy)
+    check_power("onehot_dot", label, "", ref, onehot_weights_swapped(win, yl, fy), FAULTS["onehot_dot"], f32=True)
+    # the memory's own rate on K's traffic: one elementwise op reading 8
+    # bytes a query and writing 4 (yl's bits read as floats)
+    same = torch.empty_like(fy)
+    sms = cuda_ms(lambda: torch.add(yl.view(torch.float32), fy, out=same))
+    sdms, _ = device_ms(lambda: torch.add(yl.view(torch.float32), fy, out=same), sms)
+    print(f"{'':26s} {label:30s} column-0 sectors touched {sectors} of {win.shape[0] * bo.WH}; "
+          f"F.grid_sample max|l-p| {(library() - ref).abs().max().item():.3e} (not bitwise: yl + fy rounds "
+          f"in float32); one torch.add on the same bytes {sms:.4f} ms (device {sdms:.4f})", flush=True)
+    del win, yl, fy, touched, rows, library, ref, same
 
     tab, oy, jx, img = bo.e2_inputs(gen)
     nwin = oy.numel() * bo.WH * bo.NS * bo.XQC
@@ -1716,16 +1809,136 @@ def check_onehot_kernels(results):
     nrows = int(used.sum())
     case = Case("window_sum", "E2 NT3024 x 128x3x1152", lambda: ops.window_sum(tab, oy, jx, img, bo.WH, bo.NS),
                 lambda: ops.window_sum_reference(tab, oy, jx, img, bo.WH, bo.NS),
-                bytes=2 * bo.XQC * nrows + 16 * oy.numel(), ops=nwin)
-    err = check_output(case.name, case.label, torch.float32, case.kern(), case.plain())
+                bytes=2 * bo.XQC * nrows + 16 * oy.numel(), ops=bo.XQC * nrows + oy.numel() * bo.WH * bo.NS)
+    ref = case.plain()
+    err = check_output(case.name, case.label, torch.float32, case.kern(), ref)
+    rms = window_sum_rms_error(bo.XQC, bo.WH, bo.NS, tab.float().square().mean().item())
+    bar = F32_REL * max(1.0, ref.abs().max().item())
+    print(f"{'':26s} {case.label:30s} the two-level f32 sum's expected rounding error {rms:.3e} rms a tile, "
+          f"the f32 bar {bar:.3e} ({bar / rms:.0f} x)", flush=True)
+    check_power(case.name, case.label, "", ref, window_shifted_down(tab, oy, jx, img, bo.WH, bo.NS),
+                FAULTS["window_sum"], f32=True)
     record(results["window_sum"], err, case)
     print(f"{'':26s} {case.label:30s} table rows covered {nrows} of {used.numel()}, window bytes "
           f"{2 * nwin} ({2e3 * nwin / HBM_BYTES_PER_S:.4f} ms at the memory rate)", flush=True)
     tabf = tab.view(-1, bo.XQC)
     ms = cuda_ms(lambda: tabf.index_select(0, rows).view(oy.numel(), -1).sum(1, dtype=torch.float32))
-    print(f"{'':26s} {case.label:30s} bf16     index_select + sum {ms:.4f} ms", flush=True)
-    del tab, oy, jx, img, rows, used, tabf
+    # the memory's own rate on L's traffic: one reduction reading every
+    # table byte once (1.17 x the covered bytes L reads)
+    tms = cuda_ms(lambda: tab.sum(dtype=torch.float32))
+    tdms, _ = device_ms(lambda: tab.sum(dtype=torch.float32), tms)
+    print(f"{'':26s} {case.label:30s} bf16     index_select + sum {ms:.4f} ms; tab.sum() over the whole "
+          f"table {tms:.4f} ms (device {tdms:.4f})", flush=True)
+    del tab, oy, jx, img, rows, used, tabf, ref
     torch.cuda.empty_cache()
+
+
+# Kernel K off the tool's sizes, (NT, WH, CWW, T): one tile, WH of 5 and
+# 300, T % 4 != 0 (the scalar path) beside T % 4 == 0 (the vector path), T
+# over one block's 4096 queries with a partial last chunk, an odd CWW; every
+# case's yl holds -1, WH - 1 and rows >= WH besides random rows in
+# [-2, WH + 2)
+K_EDGES = ((1, 128, 64, 4096), (7, 5, 24, 1000), (5, 300, 40, 333), (3, 128, 1728, 4098), (2, 64, 8, 4100),
+           (4, 17, 3, 6))
+# Kernel L off the tool's sizes, (B, HP, NJ, XQC, WH, NS, NT): windows that
+# leave the table (every third tile of a case with more than one: NaN),
+# XQC = 8 (one 16-byte vector a row), NS = 1, one tile, and a row of 513
+# vectors (three turns of a lane's 8 loads, the last partial)
+L_EDGES = ((2, 150, 8, 1152, 128, 3, 40), (2, 40, 5, 8, 16, 2, 50), (3, 60, 4, 1152, 20, 1, 30),
+           (1, 200, 8, 1152, 128, 3, 1), (2, 30, 3, 4104, 8, 2, 64))
+
+
+def k_edge_inputs(gen, nt, wh, cww, t, device="cuda"):
+    """win, yl, fy of a K_EDGES case: yl in [-2, WH + 2), its first four
+    queries -1, WH - 1, WH and WH + 5."""
+    import torch
+
+    win = torch.randn(nt, wh, cww, generator=gen, device=device).to(torch.bfloat16)
+    yl = torch.randint(-2, wh + 2, (nt, 1, t), generator=gen, device=device, dtype=torch.int32)
+    yl[:, 0, :4] = torch.tensor([-1, wh - 1, wh, wh + 5], dtype=torch.int32, device=device)[: min(t, 4)]
+    fy = torch.rand(nt, 1, t, generator=gen, device=device)
+    return win, yl, fy
+
+
+def l_edge_inputs(gen, b, hp, nj, xqc, wh, ns, nt, device="cuda"):
+    """tab, oy, jx, img of an L_EDGES case: windows in the table, but for
+    every third tile (of more than one) one that leaves it, by turns past
+    the bottom, past the last column, before the first row and in no
+    image."""
+    import torch
+
+    tab = torch.randn(b, hp, nj, xqc, generator=gen, device=device).to(torch.bfloat16)
+    ri = lambda hi: torch.randint(0, hi, (nt,), generator=gen, device=device, dtype=torch.int32)
+    oy, jx, img = ri(hp - wh + 1), ri(nj - ns + 1), ri(b)
+    if nt > 1:
+        for n, i in enumerate(range(1, nt, 3)):
+            k = n % 4
+            oy[i] = (hp - wh + 1, oy[i], -1, oy[i])[k]
+            jx[i] = (jx[i], nj - ns + 1, jx[i], jx[i])[k]
+            img[i] = (img[i], img[i], img[i], b)[k]
+    return tab, oy, jx, img
+
+
+def check_window_sums(label, got, ref, off_table):
+    """L's output against its plain version: NaN where the plain version
+    has NaN, which must be the ``off_table`` tiles whose window leaves the
+    table, and the f32 bar elsewhere."""
+    import torch
+
+    torch.cuda.synchronize()
+    nan = torch.isnan(ref)
+    require(int(nan.sum()) == off_table, f"window_sum {label}: {int(nan.sum())} NaN sums, not {off_table}")
+    require(torch.equal(torch.isnan(got), nan), f"window_sum {label}: NaN where the plain version has none, or "
+                                                f"the other way")
+    check_output("window_sum", f"{label} ({int(nan.sum())} NaN)", torch.float32, got[~nan], ref[~nan])
+
+
+def check_onehot_edges():
+    """Kernel K at K_EDGES (the f32 entry to the f32 bar, the 2bf16 entry
+    bit for bit, each case's path asserted) and Kernel L at L_EDGES (NaN
+    exactly at the tiles whose window leaves the table, the f32 bar
+    elsewhere) against their plain versions; then the misaligned views: L's
+    tab 2 bytes off 16 refused (its row sums have no scalar path), K's yl 4
+    and fy 8 bytes off at T % 4 == 0 taking the scalar path and held to the
+    plain version as above."""
+    import torch
+
+    from roma_tpu_torch import ops
+    from roma_tpu_torch.ops.onehot_dots import onehot_checks, window_sum_checks
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for nt, wh, cww, t in K_EDGES:
+        win, yl, fy = k_edge_inputs(gen, nt, wh, cww, t)
+        path = onehot_checks("check_onehot_edges", win, yl, fy, "f32")[4]
+        require(path == ("vector" if t % 4 == 0 else "scalar"), f"K edge T{t}: path {path}")
+        label = f"edge NT{nt} WH{wh} CWW{cww} T{t} {path}"
+        ref = ops.onehot_dot_reference(win, yl, fy)
+        check_output("onehot_dot", f"{label} f32", torch.float32, ops.onehot_dot_f32(win, yl, fy), ref)
+        check_bits("onehot_dot", f"{label} 2bf16", torch.float32, ops.onehot_dot_2bf16(win, yl, fy), ref)
+    for b, hp, nj, xqc, wh, ns, nt in L_EDGES:
+        tab, oy, jx, img = l_edge_inputs(gen, b, hp, nj, xqc, wh, ns, nt)
+        window_sum_checks("check_onehot_edges", tab, oy, jx, img, wh, ns)
+        check_window_sums(f"edge {b}x{hp}x{nj}x{xqc} WH{wh} NS{ns} NT{nt}", ops.window_sum(tab, oy, jx, img, wh, ns),
+                          ops.window_sum_reference(tab, oy, jx, img, wh, ns), len(range(1, nt, 3)) if nt > 1 else 0)
+    flat = torch.zeros(2 * 40 * 5 * 8 + 8, dtype=torch.bfloat16, device="cuda")
+    idx = [torch.zeros(4, dtype=torch.int32, device="cuda") for _ in range(3)]
+    try:
+        ops.window_sum(flat[1:1 + 2 * 40 * 5 * 8].view(2, 40, 5, 8), *idx, 16, 2)
+    except ValueError as e:
+        print(f"misaligned view refused: window_sum, tab base + 2 bytes: {e}", flush=True)
+    else:
+        raise SmokeFailure("misaligned view accepted: window_sum, tab base + 2 bytes")
+    nt, wh, cww, t = 2, 128, 64, 4096
+    win, yl, fy = k_edge_inputs(gen, nt, wh, cww, t)
+    ints = torch.empty(nt * t + 4, dtype=torch.int32, device="cuda")
+    floats = torch.empty(nt * t + 4, device="cuda")
+    for what, y, f in (("yl base + 4 bytes", ints[1:1 + nt * t].view_as(yl).copy_(yl), fy),
+                       ("fy base + 8 bytes", yl, floats[2:2 + nt * t].view_as(fy).copy_(fy))):
+        path = onehot_checks("check_onehot_edges", win, y, f, "f32")[4]
+        require(path == "scalar", f"K at T{t}, {what}: path {path}, not scalar")
+        ref = ops.onehot_dot_reference(win, y, f)
+        check_output("onehot_dot", f"{what} scalar f32", torch.float32, ops.onehot_dot_f32(win, y, f), ref)
+        check_bits("onehot_dot", f"{what} scalar 2bf16", torch.float32, ops.onehot_dot_2bf16(win, y, f), ref)
 
 
 def run_graveyard_path(results):
@@ -1810,6 +2023,7 @@ def main(argv=None) -> int:
     check_wide_kernels(results)
     check_wide_edges()
     check_onehot_kernels(results)
+    check_onehot_edges()
     check_small_match()
 
     t0 = time.perf_counter()

@@ -46,8 +46,8 @@ SIGNATURES = {
     "roma_window_warp_v1": [P] * 10 + [I] * 11 + [P],
     "roma_refiner_chain": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
     "roma_wide_refiner_block": [P] * 6 + [I] * 7 + [P],
-    "roma_onehot_dot": [P, P, P, P, I, I, I, I, I, P],
-    "roma_window_sum": [P] * 5 + [I] * 7 + [P],
+    "roma_onehot_dot": [P, P, P, P, I, I, I, I, I, I, P],
+    "roma_window_sum": [P] * 6 + [I] * 7 + [P],
 }
 
 _lib = None

@@ -9,9 +9,10 @@ outside ``[0, WH)`` contributing 0, which the TPU kernels read off row 0 of
 a whole one-hot contraction. :func:`window_sum` (Kernel L) replaces the
 tool's ``_dma_kernel``: per tile the float32 sum of a ``(WH, NS, XQC)``
 window of a ``(B, HP, NJ, XQC)`` table at ``(img, oy, jx)``. Both kernels
-are csrc/onehot_dots.cu, whose note gives the Hopper design; a CPU tensor
-takes the plain versions here. Their caller is
-roma_tpu_torch/tools/bench_onehot_dots.py.
+are csrc/onehot_dots.cu, whose note gives the Hopper design; each wrapper
+checks its arguments in one pure function (:func:`onehot_checks`,
+:func:`window_sum_checks`), which also plans the launch. A CPU tensor takes
+the plain versions here. Their caller is roma_tpu_torch/tools/bench_onehot_dots.py.
 """
 from __future__ import annotations
 
@@ -20,6 +21,13 @@ import torch
 from .. import _ext
 
 FORMS = ("f32", "2bf16")
+VEC_BYTES = 16  # K's vector path moves 4 queries of yl, fy and o at a time; L reads tab's rows so
+INT_MAX = 2**31 - 1  # the C entries take 32-bit sizes
+K_CHUNK = 4096  # queries a block of Kernel K (csrc/onehot_dots.cu KCHUNK)
+K_MAX_T = INT_MAX - K_CHUNK  # so a chunk's last query index stays a 32-bit int
+# K stages a tile's column 0 as WH floats in the 48 KB of shared memory a
+# block gets without opting in to more
+K_MAX_WH = 48 * 1024 // 4
 
 
 def onehot_dot_reference(win: torch.Tensor, yl: torch.Tensor, fy: torch.Tensor) -> torch.Tensor:
@@ -38,6 +46,40 @@ def onehot_dot_reference(win: torch.Tensor, yl: torch.Tensor, fy: torch.Tensor) 
     return pick(yl) * (1.0 - fy) + pick(yl + 1) * fy
 
 
+def onehot_checks(what, win, yl, fy, form):
+    """Kernel K's argument contract, in one pass, before any launch: form
+    one of FORMS; win (NT, WH, CWW) bfloat16, yl int32 and fy float32
+    (NT, 1, T), every size under 2^31, T at most K_MAX_T and WH at most
+    K_MAX_WH (a block stages the tile's column 0, WH floats, in shared
+    memory); all contiguous and on one device (ValueError); win not
+    requiring a gradient (RuntimeError). Picks the path: "vector" (4 queries
+    a thread, 16-byte loads of yl and fy) when T % 4 == 0 and yl's and fy's
+    bases are 16-byte aligned, else "scalar" (a query a thread, any base).
+    Returns (NT, WH, CWW, T, path, shared-memory bytes a block)."""
+    if form not in FORMS:
+        raise ValueError(f"{what}: form {form!r} not in {FORMS}")
+    if win.ndim != 3 or yl.ndim != 3:
+        raise ValueError(f"{what}: expected win (NT, WH, CWW) and yl, fy (NT, 1, T); got {tuple(win.shape)}, "
+                         f"{tuple(yl.shape)}, {tuple(fy.shape)}")
+    nt, wh, cww = win.shape
+    t = yl.shape[-1]
+    if (win.dtype != torch.bfloat16 or yl.dtype != torch.int32 or fy.dtype != torch.float32
+            or tuple(yl.shape) != (nt, 1, t) or tuple(fy.shape) != (nt, 1, t) or min(wh, cww) < 1):
+        raise ValueError(f"{what}: expected win (NT, WH, CWW) bfloat16, yl int32 and fy float32 (NT, 1, T); "
+                         f"got {win.dtype} {tuple(win.shape)}, {yl.dtype} {tuple(yl.shape)}, "
+                         f"{fy.dtype} {tuple(fy.shape)}")
+    if not all(x.is_contiguous() and x.device == win.device for x in (win, yl, fy)):
+        raise ValueError(f"{what}: win, yl and fy must be contiguous and on one device")
+    if win.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(f"{what}: forward-only kernel, no backward")
+    if wh > K_MAX_WH or max(nt, cww) > INT_MAX or t > K_MAX_T:
+        raise ValueError(f"{what}: a block stages WH <= {K_MAX_WH} rows of column 0, T is at most {K_MAX_T} and "
+                         f"every size is a 32-bit int; got win {tuple(win.shape)}, T {t}")
+    aligned = yl.data_ptr() % VEC_BYTES == 0 and fy.data_ptr() % VEC_BYTES == 0
+    path = "vector" if t % 4 == 0 and aligned else "scalar"
+    return nt, wh, cww, t, path, 4 * wh
+
+
 def onehot_dot(win: torch.Tensor, yl: torch.Tensor, fy: torch.Tensor, form: str = "f32") -> torch.Tensor:
     """win (NT, WH, CWW) bf16, yl int32 and fy float32 (NT, 1, T) ->
     (NT, 1, T) float32, in ``form`` ("f32" or "2bf16"): Kernel K."""
@@ -46,17 +88,14 @@ def onehot_dot(win: torch.Tensor, yl: torch.Tensor, fy: torch.Tensor, form: str 
     if win.device.type == "cpu":
         return onehot_dot_reference(win, yl, fy)
     what = f"onehot_dot_{form}"
-    _ext.require_cuda(what, win, yl, fy)
-    nt, wh, cww = win.shape
-    t = yl.shape[-1]
-    if (win.dtype != torch.bfloat16 or yl.dtype != torch.int32 or fy.dtype != torch.float32
-            or tuple(yl.shape) != (nt, 1, t) or tuple(fy.shape) != (nt, 1, t)):
-        raise ValueError(f"{what}: expected win (NT, WH, CWW) bfloat16, yl int32 and fy float32 (NT, 1, T); "
-                         f"got {win.dtype} {tuple(win.shape)}, {yl.dtype} {tuple(yl.shape)}, "
-                         f"{fy.dtype} {tuple(fy.shape)}")
+    if not win.is_cuda:
+        raise ValueError(f"{what}: tensors must be on a CUDA device or the CPU, got {win.device}")
+    nt, wh, cww, t, path, _ = onehot_checks(what, win, yl, fy, form)
     out = torch.empty(nt, 1, t, dtype=torch.float32, device=win.device)
-    rc = _ext.lib().roma_onehot_dot(win.data_ptr(), yl.data_ptr(), fy.data_ptr(), out.data_ptr(),
-                                    nt, wh, cww, t, int(form == "2bf16"), _ext.stream())
+    if out.numel() == 0:
+        return out
+    rc = _ext.lib().roma_onehot_dot(win.data_ptr(), yl.data_ptr(), fy.data_ptr(), out.data_ptr(), nt, wh, cww, t,
+                                    int(form == "2bf16"), int(path == "vector"), _ext.stream())
     _ext.check(rc, what)
     onehot_dot.launches += 1
     return out
@@ -98,6 +137,37 @@ def window_sum_reference(tab: torch.Tensor, oy: torch.Tensor, jx: torch.Tensor, 
     return torch.where(ok, total, torch.full_like(total, float("nan")))[:, None]
 
 
+def window_sum_checks(what, tab, oy, jx, img, wh, ns):
+    """Kernel L's argument contract, in one pass, before any launch: tab
+    (B, HP, NJ, XQC) bfloat16 with XQC a multiple of 8 and its base 16-byte
+    aligned (phase 1 reads the rows by 16-byte vectors); oy, jx, img
+    int32 (NT,); WH, NS ints >= 1; every size under 2^31; all contiguous and
+    on one device (ValueError); tab not requiring a gradient (RuntimeError).
+    Returns (B, HP, NJ, XQC, NT, the scratch's float count B * HP * NJ: a
+    row sum or a covered-row flag a table row)."""
+    if tab.ndim != 4 or tab.dtype != torch.bfloat16 or tab.shape[-1] % 8 or min(tab.shape) < 1:
+        raise ValueError(f"{what}: expected tab (B, HP, NJ, XQC) bfloat16 with XQC a multiple of 8, got "
+                         f"{tab.dtype} {tuple(tab.shape)}")
+    b, hp, nj, xqc = tab.shape
+    nt = oy.shape[0] if oy.ndim == 1 else -1
+    if any(t.dtype != torch.int32 or tuple(t.shape) != (nt,) for t in (oy, jx, img)):
+        raise ValueError(f"{what}: expected int32 (NT,) oy, jx, img; got "
+                         f"{[(t.dtype, tuple(t.shape)) for t in (oy, jx, img)]}")
+    if not (isinstance(wh, int) and isinstance(ns, int) and wh >= 1 and ns >= 1):
+        raise ValueError(f"{what}: WH and NS must be ints >= 1, got {wh!r}, {ns!r}")
+    if max(b, hp, nj, xqc, nt, wh * ns) > INT_MAX:
+        raise ValueError(f"{what}: every size must be a 32-bit int, got tab {tuple(tab.shape)}, NT {nt}, "
+                         f"WH {wh}, NS {ns}")
+    if not all(t.is_contiguous() and t.device == tab.device for t in (tab, oy, jx, img)):
+        raise ValueError(f"{what}: tab, oy, jx and img must be contiguous and on one device")
+    if tab.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(f"{what}: forward-only kernel, no backward")
+    if tab.data_ptr() % VEC_BYTES:
+        raise ValueError(f"{what}: phase 1 reads tab's rows by 16-byte vectors and needs its base 16-byte "
+                         f"aligned, got address {tab.data_ptr()} % 16 = {tab.data_ptr() % 16}")
+    return b, hp, nj, xqc, nt, b * hp * nj
+
+
 def window_sum(tab: torch.Tensor, oy: torch.Tensor, jx: torch.Tensor, img: torch.Tensor,
                wh: int, ns: int) -> torch.Tensor:
     """tab (B, HP, NJ, XQC) bf16, oy / jx / img int32 (NT,) -> (NT, 1)
@@ -105,19 +175,17 @@ def window_sum(tab: torch.Tensor, oy: torch.Tensor, jx: torch.Tensor, img: torch
     if tab.device.type == "cpu":
         return window_sum_reference(tab, oy, jx, img, wh, ns)
     what = "window_sum"
-    _ext.require_cuda(what, tab, oy, jx, img)
-    b, hp, nj, xqc = tab.shape
-    nt = oy.shape[0]
-    if (tab.dtype != torch.bfloat16 or xqc % 8 or wh < 1 or ns < 1
-            or any(t.dtype != torch.int32 or tuple(t.shape) != (nt,) for t in (oy, jx, img))):
-        raise ValueError(f"{what}: expected tab (B, HP, NJ, XQC) bfloat16 with XQC % 8 == 0, int32 (NT,) "
-                         f"oy, jx, img and WH, NS >= 1; got {tab.dtype} {tuple(tab.shape)}, "
-                         f"{[(t.dtype, tuple(t.shape)) for t in (oy, jx, img)]}, WH {wh}, NS {ns}")
+    if not tab.is_cuda:
+        raise ValueError(f"{what}: tensors must be on a CUDA device or the CPU, got {tab.device}")
+    b, hp, nj, xqc, nt, nrows = window_sum_checks(what, tab, oy, jx, img, wh, ns)
     out = torch.empty(nt, 1, dtype=torch.float32, device=tab.device)
+    if nt == 0:
+        return out
+    rowsum = torch.empty(nrows, dtype=torch.float32, device=tab.device)
     rc = _ext.lib().roma_window_sum(tab.data_ptr(), oy.data_ptr(), jx.data_ptr(), img.data_ptr(),
-                                    out.data_ptr(), nt, b, hp, nj, xqc, wh, ns, _ext.stream())
+                                    rowsum.data_ptr(), out.data_ptr(), nt, b, hp, nj, xqc, wh, ns, _ext.stream())
     _ext.check(rc, what)
-    window_sum.launches += 1
+    window_sum.launches += 3  # the marking pass, the row sums and the tile sums
     return out
 
 

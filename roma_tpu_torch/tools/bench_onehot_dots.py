@@ -5,10 +5,11 @@
 
 Q1 (E1): on the TPU, is one f32 weighted one-hot dot faster than two exact
 bf16 0/1 dots with an f32 combine? Here both forms are Kernel K
-(ops.onehot_dot_f32 / ops.onehot_dot_2bf16): the two row picks are direct
-loads, no contraction. Q2 (E2): a per-tile window fetch and sum, Kernel L
-(ops.window_sum), against materialising the same rows with one
-``index_select`` (the JAX tool's ``jnp.take``). Sizes are the JAX tool's;
+(ops.onehot_dot_f32 / ops.onehot_dot_2bf16): the two row picks are lookups
+in the tile's column 0, staged once in shared memory, no contraction. Q2
+(E2): a per-tile window sum, Kernel L (ops.window_sum, which sums each table
+row once and then each tile's row sums), against materialising the same
+rows with one ``index_select`` (the JAX tool's ``jnp.take``). Sizes are the JAX tool's;
 inputs come from a seeded torch.Generator; times are CUDA-event medians.
 """
 from __future__ import annotations
@@ -71,18 +72,24 @@ def e1(nt: int = NT, cww: int = CWW, device="cuda") -> dict:
 @torch.no_grad()
 def e2(nt: int = NT2, b: int = B2, hp: int = HP, device="cuda") -> dict:
     """Kernel L on the tool's inputs, then the same window rows gathered by
-    one index_select; prints both times and their window-byte rates."""
+    one index_select; prints both times and their rates in window bytes
+    (every window's rows, as the TPU tool counts them) and, for L, in
+    covered table bytes (each table row some window covers, once: what L
+    reads, since the windows overlap)."""
     require_card(device)
     tab, oy, jx, img = e2_inputs(torch.Generator(device=device).manual_seed(1), nt, b, hp, device)
-    nbytes = nt * WH * NS * XQC * 2
-    rate = lambda ms: "" if ms is None else f"  ({nbytes / ms / 1e6:7.1f} GB/s)"
-    sums, ms = timed(lambda: window_sum(tab, oy, jx, img, WH, NS), device, REPS)
-    print(f"E2 window fetch + sum  : {fmt_ms(ms)}{rate(ms)}", flush=True)
     tabf = tab.view(-1, XQC)
     rows = window_rows(tab, oy, jx, img, WH, NS).reshape(-1)
+    nbytes = nt * WH * NS * XQC * 2
+    covered = 2 * XQC * int(torch.zeros(tabf.shape[0], dtype=torch.bool, device=device).index_fill_(0, rows, True).sum())
+    gbs = lambda n, ms: f"{n / ms / 1e6:7.1f} GB/s"
+    sums, ms = timed(lambda: window_sum(tab, oy, jx, img, WH, NS), device, REPS)
+    rate = "" if ms is None else f"  ({gbs(nbytes, ms)} of window bytes, {gbs(covered, ms)} of covered table bytes)"
+    print(f"E2 window fetch + sum  : {fmt_ms(ms)}{rate}", flush=True)
     _, gms = timed(lambda: tabf.index_select(0, rows), device, REPS)
-    print(f"E2 index_select rows   : {fmt_ms(gms)}{rate(gms)}", flush=True)
-    return {"sums": (sums, ms), "gather_ms": gms, "inputs": (tab, oy, jx, img)}
+    rate = "" if gms is None else f"  ({gbs(nbytes, gms)} of window bytes)"
+    print(f"E2 index_select rows   : {fmt_ms(gms)}{rate}", flush=True)
+    return {"sums": (sums, ms), "gather_ms": gms, "inputs": (tab, oy, jx, img), "covered_bytes": covered}
 
 
 def main(argv=None) -> int:

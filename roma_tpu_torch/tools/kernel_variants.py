@@ -1,23 +1,26 @@
-"""Variants of Kernels B, C, D, H, I and J timed against the sources as they stand.
+"""Variants of Kernels B, C, D, H, I, J, K and L timed against the sources as they stand.
 
     python3 -m roma_tpu_torch.tools.kernel_variants [--only NAME ...]
 
 Each variant is a copy of ``csrc/local_corr.cu``, ``csrc/warp_sample.cu``,
-``csrc/refiner_stack.cu``, ``csrc/refiner_chain.cu`` or
-``csrc/wide_refiner.cu`` with named text replaced (VARIANTS), built alone by
-nvcc into ``build/kernel_variants/<name>.so`` (all builds in parallel) and
-called through its C entry on bf16 inputs at the shapes chip_smoke.py gives
-the kernel (B's five local-correlation scales, C's nine x_hat lookups, D's
-and H's 9-block scale-1 stacks at 560^2 and 864^2, the same inputs for
-both; I's and J's seven 9-block wide-C stacks, NHWC for I, (B, H, C, W)
-for J; B = 2). For each it prints the device time of each shape (calls
-captured in a CUDA graph and replayed, the median over replays), their
-sum, and the largest difference from the plain version; then the card
-line. The variants are the choices the redesigns weighed; "b", "c", "d",
-"h", "i" and "j" are the sources unchanged. H's group size is an argument
-of its entry (H_GROUPS). "i_permute_j" is the yardstick for I: x permuted
-to (B, H, C, W), J's chain, the result permuted back, all in the timed
-call. Needs a CUDA card and nvcc.
+``csrc/refiner_stack.cu``, ``csrc/refiner_chain.cu``,
+``csrc/wide_refiner.cu`` or ``csrc/onehot_dots.cu`` with named text
+replaced (VARIANTS), built alone by nvcc into
+``build/kernel_variants/<name>.so`` (all builds in parallel) and called
+through its C entry on bf16 inputs at the shapes chip_smoke.py gives the
+kernel (B's five local-correlation scales, C's nine x_hat lookups, D's and
+H's 9-block scale-1 stacks at 560^2 and 864^2, the same inputs for both;
+I's and J's seven 9-block wide-C stacks, NHWC for I, (B, H, C, W) for J;
+B = 2; K's two entries and L at tools/bench_onehot_dots.py's sizes). For
+each it prints the device time of each shape (calls captured in a CUDA
+graph and replayed, the median over replays), their sum, and the largest
+difference from the plain version; then the card line. The variants are
+the choices the redesigns weighed; "b", "c", "d", "h", "i", "j", "k" and
+"l" are the sources unchanged. H's group size and K's path are arguments
+of their entries (H_GROUPS, K_PATHS).
+"i_permute_j" is the yardstick for I: x permuted to (B, H, C, W), J's
+chain, the result permuted back, all in the timed call. Needs a CUDA card
+and nvcc.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import torch.nn.functional as F
 
 from .. import _ext, ops
 from ..ops.local_corr import corr_checks
+from ..ops.onehot_dots import onehot_checks, window_sum_checks
 from ..ops.refiner_stack import C24_GROUP, packed_weights
 from ..ops.warp_sample import PATH_CODES, warp_sample_checks
 from ..ops.wide_refiner import block_w2t
@@ -80,6 +84,23 @@ VARIANTS = {
     # J's two phases alone (timing probes: the output is wrong)
     "j_probe_depthwise_only": ("wide_refiner.cu", [("for (int i = 0; i < nst; ++i) {", "for (int i = 0; i < 0; ++i) {")]),
     "j_probe_product_only": ("wide_refiner.cu", [("for (int ch = 0; ch < nch; ++ch) {", "for (int ch = 0; ch < 0; ++ch) {")]),
+    # K: a thread a query (the scalar path at T % 4 == 0), the queries a block
+    "k": ("onehot_dots.cu", []),
+    "k_one_query_a_thread": ("onehot_dots.cu", []),
+    "k_chunk1024": ("onehot_dots.cu", [("KCHUNK = 4096;", "KCHUNK = 1024;")]),
+    # K's query stream alone (a timing probe: every block stages tile 0's
+    # column, from L2, so the output is wrong)
+    "k_probe_one_column": ("onehot_dots.cu", [("win + (long long)tile * WH * CWW;", "win;")]),
+    # L: phase 1 over every table row (no zeroed scratch, no marking pass),
+    # the loads a lane keeps in flight
+    "l": ("onehot_dots.cu", []),
+    "l_all_rows": ("onehot_dots.cu", [
+        (" || rowsum[row] == 0.f) return;", ") return;"),
+        ("  cudaError_t err = cudaMemsetAsync(rs, 0, nrows * sizeof(float), s);\n"
+         "  if (err) return static_cast<int>(err);\n"
+         "  mark_rows_kernel<<<static_cast<unsigned>(mark_blocks), LT, 0, s>>>(y, j, b, rs, n, B, HP, NJ, WH, NS);\n",
+         "")]),
+    "l_unroll4": ("onehot_dots.cu", [("L_UNROLL = 8;", "L_UNROLL = 4;")]),
 }
 WARP_SHAPES = (("coarse s16 40^2 C512", 40, 512), ("coarse s8 70^2 C512", 70, 512),
                ("coarse s4 140^2 C256", 140, 256), ("coarse s2 280^2 C64", 280, 64),
@@ -96,6 +117,8 @@ CORR_SHAPES = (("coarse s16 40^2 C512 r7", 40, 512, 7), ("coarse s8 70^2 C512 r3
                ("upsample s4 216^2 C256 r2", 216, 256, 2))
 # H's variants' blocks a launch (default: ops.refiner_stack.C24_GROUP)
 H_GROUPS = {"h_g1": 1, "h_g3": 3, "h_g3_rows32": 3}
+# K's variants' path (default: the plan of onehot_checks)
+K_PATHS = {"k_one_query_a_thread": "scalar"}
 P, I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -314,6 +337,53 @@ def stack_call(lib, args, out, name):
     return call
 
 
+def onehot_cases(gen):
+    """K's two entries on tools/bench_onehot_dots.py's e1 inputs."""
+    from .bench_onehot_dots import e1_inputs
+
+    win, yl, fy = e1_inputs(gen)
+    ref = ops.onehot_dot_reference(win, yl, fy)
+    return [(f"E1 {form}", (win, yl, fy, form), ref) for form in ops.onehot_dots.FORMS]
+
+
+def onehot_call(lib, args, out, name):
+    win, yl, fy, form = args
+    nt, wh, cww, t, path, _ = onehot_checks("kernel_variants", win, yl, fy, form)
+    fn = lib.roma_onehot_dot
+    fn.argtypes, fn.restype = [P] * 4 + [I] * 6 + [P], I
+    ptrs = (win.data_ptr(), yl.data_ptr(), fy.data_ptr(), out.data_ptr())
+    vec = int(K_PATHS.get(name, path) == "vector")
+
+    def call():
+        if fn(*ptrs, nt, wh, cww, t, int(form == "2bf16"), vec, _ext.stream()):
+            raise RuntimeError("roma_onehot_dot failed")
+        return out
+    return call
+
+
+def window_cases(gen):
+    """L on tools/bench_onehot_dots.py's e2 inputs."""
+    from .bench_onehot_dots import NS, WH, e2_inputs
+
+    tab, oy, jx, img = e2_inputs(gen)
+    return [("E2", (tab, oy, jx, img, WH, NS), ops.window_sum_reference(tab, oy, jx, img, WH, NS))]
+
+
+def window_call(lib, args, out, name):
+    tab, oy, jx, img, wh, ns = args
+    b, hp, nj, xqc, nt, nrows = window_sum_checks("kernel_variants", tab, oy, jx, img, wh, ns)
+    fn = lib.roma_window_sum
+    fn.argtypes, fn.restype = [P] * 6 + [I] * 7 + [P], I
+    rowsum = torch.empty(nrows, device=tab.device)
+    ptrs = (tab.data_ptr(), oy.data_ptr(), jx.data_ptr(), img.data_ptr(), rowsum.data_ptr(), out.data_ptr())
+
+    def call():
+        if fn(*ptrs, nt, b, hp, nj, xqc, wh, ns, _ext.stream()):
+            raise RuntimeError("roma_window_sum failed")
+        return out
+    return call
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", nargs="*", choices=sorted(VARIANTS), help="the variants to time (default: all)")
@@ -326,7 +396,8 @@ def main(argv=None) -> int:
     # a variant's kernel is the letter before its first "_"; D and H share
     # their inputs
     makers = {"b": (corr_cases, corr_call), "c": (warp_cases, warp_call), "d": (stack_cases, stack_call),
-              "h": (stack_cases, chain_call), "i": (lane_cases, lane_call), "j": (wide_cases, wide_call)}
+              "h": (stack_cases, chain_call), "i": (lane_cases, lane_call), "j": (wide_cases, wide_call),
+              "k": (onehot_cases, onehot_call), "l": (window_cases, window_call)}
     cases = {}
     for name in names:
         lib = ctypes.CDLL(str(libs[name].resolve()))

@@ -1,11 +1,14 @@
 """The card run's own checks, on the CPU: chip_smoke.py's spill gate on a
 ptxas report, the bf16 ulp its bars count in, the planted faults of Kernels
-D, B, C, J, I and H's plain versions breaking their ulp bar, the edge
-shapes' coverage and the paths they take, H's bound, and where the build
-keeps the report it reads."""
+D, B, C, J, I and H's plain versions breaking their ulp bar and K and L's
+breaking the f32 bar, the edge shapes' coverage and the paths they take,
+H's bound, L's expected rounding error, and where the build keeps the
+report it reads."""
+import math
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -238,3 +241,107 @@ def test_h_bound_counts_what_its_body_does(dtype):
                            f32_ops=dwo)
     if dtype == torch.bfloat16:
         assert case.ops_ms() == pytest.approx(1e3 * dwo / chip_smoke.PEAK_F32, rel=1e-12)
+
+
+def _f32_planted(name):
+    """(plain output, planted-fault output) of Kernel K or L on the CPU, on
+    the tool's inputs at a few tiles."""
+    from roma_tpu_torch.tools import bench_onehot_dots as bo
+
+    gen = torch.Generator().manual_seed(6)
+    if name == "onehot_dot":
+        win, yl, fy = bo.e1_inputs(gen, nt=3, cww=8, device="cpu")
+        return ops.onehot_dot_reference(win, yl, fy), chip_smoke.onehot_weights_swapped(win, yl, fy)
+    args = bo.e2_inputs(gen, nt=5, b=2, hp=160, device="cpu")
+    return (ops.window_sum_reference(*args, bo.WH, bo.NS),
+            chip_smoke.window_shifted_down(*args, bo.WH, bo.NS))
+
+
+@pytest.mark.parametrize("name", ["onehot_dot", "window_sum"])
+def test_f32_planted_faults_break_the_f32_bar(name, capsys):
+    ref, wrong = _f32_planted(name)
+    chip_smoke.check_power(name, "cpu", "", ref, wrong, chip_smoke.FAULTS[name], f32=True)
+    assert "x the f32 bar" in capsys.readouterr().out
+    with pytest.raises(chip_smoke.SmokeFailure, match="disagrees"):
+        chip_smoke.check_output(name, "cpu", torch.float32, wrong, ref)
+    chip_smoke.check_output(name, "cpu", torch.float32, ref.clone(), ref)
+    with pytest.raises(chip_smoke.SmokeFailure, match="planted fault"):
+        chip_smoke.check_power(name, "cpu", "", ref, ref + 1e-6, chip_smoke.FAULTS[name], f32=True)
+
+
+def test_k_edges_cover_what_they_claim():
+    """One tile, WH of 5 and 300, both paths, T past one block's 4096
+    queries with a partial last chunk, and yl of -1, WH - 1 and >= WH in
+    every case."""
+    from roma_tpu_torch.ops.onehot_dots import onehot_checks
+
+    edges = chip_smoke.K_EDGES
+    assert any(nt == 1 for nt, *_ in edges) and {5, 300} <= {wh for _, wh, _, _ in edges}
+    assert any(t % 4 for *_, t in edges) and any(t > 4096 and t % 4096 and t % 4 == 0 for *_, t in edges)
+    gen = torch.Generator().manual_seed(0)
+    paths = set()
+    for nt, wh, cww, t in edges:
+        win, yl, fy = chip_smoke.k_edge_inputs(gen, nt, wh, cww, t, "cpu")
+        path = onehot_checks("t", win, yl, fy, "f32")[4]
+        assert path == ("vector" if t % 4 == 0 else "scalar")
+        paths.add(path)
+        assert {-1, wh - 1} <= set(yl.unique().tolist()) and (yl >= wh).any()
+    assert paths == {"vector", "scalar"}
+
+
+def test_l_edges_cover_what_they_claim():
+    """XQC = 8, NS = 1, one tile, a row over one turn of a lane's 8 loads,
+    and windows off the table on every side: NaN in the plain version at
+    exactly the tiles check_onehot_edges expects."""
+    from roma_tpu_torch.ops.onehot_dots import window_sum_checks
+
+    edges = chip_smoke.L_EDGES
+    assert any(xqc == 8 for _, _, _, xqc, *_ in edges) and any(ns == 1 for *_, ns, _ in edges)
+    assert any(nt == 1 for *_, nt in edges) and any(xqc // 8 > 32 * 8 for _, _, _, xqc, *_ in edges)
+    gen = torch.Generator().manual_seed(0)
+    for b, hp, nj, xqc, wh, ns, nt in edges:
+        tab, oy, jx, img = chip_smoke.l_edge_inputs(gen, b, hp, nj, xqc, wh, ns, nt, "cpu")
+        window_sum_checks("t", tab, oy, jx, img, wh, ns)
+        nan = torch.isnan(ops.window_sum_reference(tab, oy, jx, img, wh, ns)).view(-1)
+        off = list(range(1, nt, 3)) if nt > 1 else []
+        assert nan.nonzero().view(-1).tolist() == off
+        if len(off) >= 4:  # every way out: past the bottom, past the last column, before row 0, no image
+            k = torch.tensor(off[:4])
+            assert oy[k[0]] > hp - wh and jx[k[1]] > nj - ns and oy[k[2]] < 0 and img[k[3]] == b
+
+
+def _kernel_order_sums(x, wh, ns):
+    """Kernel L's float32 additions in its order (csrc/onehot_dots.cu), in
+    numpy: x (N, WH * NS, XQC) float32 -> (N,) tile sums. A row's lane l
+    adds vectors l, l + 32, ... (8 values each) in order, 5 xor-shuffle
+    levels join the lanes; a tile's lane l adds rows l, l + 32, ... in order,
+    5 levels join them."""
+    def lanes_then_tree(v, per_lane):  # v (..., n) terms, per_lane[l] the indices lane l adds in order
+        m = max(map(len, per_lane))
+        padded = np.concatenate((v, np.zeros(v.shape[:-1] + (1,), np.float32)), -1)
+        idx = np.array([p + [v.shape[-1]] * (m - len(p)) for p in per_lane])  # (32, m)
+        g = padded[..., idx]  # (..., 32, m)
+        acc = np.zeros(g.shape[:-1], np.float32)
+        for k in range(m):
+            acc = (acc + g[..., k]).astype(np.float32)
+        for o in (16, 8, 4, 2, 1):
+            acc = (acc + acc[..., np.arange(32) ^ o]).astype(np.float32)
+        return acc[..., 0]
+
+    xqc = x.shape[-1]
+    row_lanes = [[8 * vec + i for vec in range(lane, xqc // 8, 32) for i in range(8)] for lane in range(32)]
+    rows = lanes_then_tree(x, row_lanes)  # (N, WH * NS)
+    return lanes_then_tree(rows, [list(range(lane, wh * ns, 32)) for lane in range(32)])
+
+
+def test_window_sum_rms_error_predicts_the_kernel_order():
+    """The expected rounding error chip_smoke prints beside L's f32 bar is
+    within 2x of the rms error of L's own summation order, simulated in
+    float32 against a float64 sum, on random tiles."""
+    rs = np.random.RandomState(0)
+    wh, ns, xqc, n = 16, 3, 64, 3000
+    x = rs.randn(n, wh * ns, xqc).astype(np.float32)
+    err = _kernel_order_sums(x, wh, ns).astype(np.float64) - x.astype(np.float64).sum((1, 2))
+    rms = math.sqrt(float(np.mean(err ** 2)))
+    est = chip_smoke.window_sum_rms_error(xqc, wh, ns, float(np.mean(x.astype(np.float64) ** 2)))
+    assert 0.5 < rms / est < 2.0, (rms, est)
