@@ -27,6 +27,13 @@
    (bf16 amp, 560 -> 864, symmetric), answers 3 match requests on seeded
    synthetic image pairs, samples 5000 matches from each, and checks shapes,
    finiteness, sample range and that every kernel of the match launched.
+   Then the zoo phase (check_zoo): writes that model's weights as a
+   reference-layout .pth pair, builds roma_outdoor and roma_indoor from the
+   files, requires every loaded tensor to equal the file's and each match to
+   equal the seeded model's to the bf16 bar, runs match_keypoints,
+   conf_from_fb_consistency and visualize_warp on the output, and prints
+   each load time and peak memory. The script sets ROMA_TPU_OFFLINE=1 and
+   an empty ROMA_TPU_CACHE first, so no weights are fetched or read.
 5. Checks one training step on the small configuration: the kernel path on
    the card against the plain path on the CPU, float32.
 6. Trains the released widths (DINOv2 frozen, bf16 autocast over float32
@@ -42,7 +49,8 @@
    equal, and misaligned bf16 views refused with ValueError.
 8. Right after 2, checks the windowed samplers and the packed refiner
    stack at their design shapes (B = 2, bf16 and f32): Kernel F (compact_miss) exactly
-   against its plain version; Kernel G's two entries against their plain
+   against its plain version on its own path and on the generic one, a
+   planted off-by-one rank breaking that check; Kernel G's two entries against their plain
    tile computation, bit for bit, and windowed_warp / windowed_grid_sample as a whole
    against warp_sample_reference, asserting which branch each case took;
    Kernel H against refiner_stack_reference and Kernel D (in bf16 to
@@ -50,7 +58,9 @@
    wrapper part by part on the host (wrapper_host_parts). Then holds G at
    its edges: a v1 partial tile (560^2), fixups at a tile's first and last
    query and on both sides of a block boundary, and widths other than 9
-   (the instantiated 4 and 5, and 3 through the looped kernel). After 7,
+   (the instantiated 4 and 5, and 3 through the looped kernel); and F at
+   COMPACT_EDGES on each of its paths, views off the vector alignment on
+   the generic one and the entry refusing a vector path there. After 7,
    drives those entries once as a caller does and counts F, G and H's
    launches.
 9. Right after 8, checks Kernels I and J (the wide-C refiner blocks)
@@ -104,6 +114,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 from dataclasses import dataclass
@@ -474,6 +485,17 @@ def window_shifted_down(tab, oy, jx, img, wh, ns):
     return ops.window_sum_reference(tab, oy + 1, jx, img, wh, ns)
 
 
+def compact_rank_off_by_one(miss, t, kf):
+    """compact_miss_reference with one planted fault: every rank one too
+    high, so slot 0 holds the sentinel and slot s the s-th set flag."""
+    import torch
+
+    from roma_tpu_torch import ops
+
+    ref = ops.compact_miss_reference(miss, t, kf)
+    return torch.cat((torch.full_like(ref[:, :1], t), ref[:, :-1]), 1)
+
+
 # what each Case.planted plants in its plain version
 FAULTS = {"fused_refiner_stack": "edge-clamped instead of zero padding",
           "local_correlation": "fractions fy and fx swapped",
@@ -482,7 +504,8 @@ FAULTS = {"fused_refiner_stack": "edge-clamped instead of zero padding",
           "lane_refiner_block": "edge-clamped instead of zero padding",
           "fused_refiner_stack_packed": "edge-clamped instead of zero padding",
           "onehot_dot": "weights fy and 1 - fy swapped",
-          "window_sum": "each window shifted down one table row"}
+          "window_sum": "each window shifted down one table row",
+          "compact_miss": "every rank one too high"}
 
 
 def kernel_cases(gen, dt):
@@ -581,12 +604,20 @@ def check_output(name, label, dt, k, p, what: str = "") -> float:
     return err
 
 
-def check_power(name, label, what, ref, wrong, fault: str = "softmax scale x1.02", f32: bool = False):
+def check_power(name, label, what, ref, wrong, fault: str = "softmax scale x1.02", f32: bool = False,
+                exact: bool = False):
     """A bar must be able to fail its kernel: the plain version with one
     planted fault (``wrong``: for attention the softmax scale off by 2%,
     else FAULTS[name]) must move by more than the bar check_output holds
     the kernel to: in bf16 ULP_BARS[name] ulps of the largest reference
-    value; with ``f32``, F32_REL of it (at least F32_REL)."""
+    value; with ``f32``, F32_REL of it (at least F32_REL); with ``exact``
+    (Kernel F's integer slots), at least one element."""
+    if exact:
+        moved = int((wrong != ref).sum())
+        print(f"{name:24s} {label:30s} int32    {what}{fault} changes {moved} of {ref.numel()} slots of the "
+              f"plain version (exact check)", flush=True)
+        require(moved > 0, f"{name} {label} {what}: the exact check would pass a planted fault ({fault})")
+        return
     moved = (wrong.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
     if f32:
@@ -937,6 +968,80 @@ def small_config():
         disp_emb=((16, 8), (8, 8), (4, 8), (2, 8), (1, 6)),
         corr_radius=((16, 7), (8, 3), (4, 2), (2, 0), (1, 0)), hidden_blocks=2,
     )
+
+
+def check_zoo(model, pair, warp, cert):
+    """The zoo phase: the released models' entry points from local files.
+    Writes ``model``'s weights as a reference-layout pair (the roma state
+    dict and the DINOv2 one, float32, as the released .pth files) to a
+    temporary directory, builds roma_outdoor and roma_indoor from those
+    paths on the card, requires every loaded tensor to equal the file's and
+    the 560 -> 864 match of ``pair`` to equal ``warp`` and ``cert`` (the
+    seeded model's) to the bf16 bar, then runs match_keypoints,
+    conf_from_fb_consistency and visualize_warp on roma_outdoor's output.
+    Prints each model's load time and the peak device memory of its load and
+    match with the card's line."""
+    import torch
+
+    from roma_tpu_torch.models import roma_indoor, roma_outdoor
+    from roma_tpu_torch.models.zoo import convert
+
+    roma_sd, dino_sd = convert.to_reference(model.net)
+    files = {**roma_sd, **{convert.DINO_PREFIX + k: v for k, v in dino_sd.items()}}
+    with tempfile.TemporaryDirectory() as d:
+        paths = os.path.join(d, "roma_outdoor.pth"), os.path.join(d, "dinov2_vitl14_pretrain.pth")
+        t0 = time.perf_counter()
+        torch.save(roma_sd, paths[0])
+        torch.save(dino_sd, paths[1])
+        print(f"zoo: reference-layout pair of {len(roma_sd)} + {len(dino_sd)} float32 tensors "
+              f"({sum(map(os.path.getsize, paths))} bytes) written in {time.perf_counter() - t0:.2f} s", flush=True)
+        del roma_sd, dino_sd
+        for name, build in (("roma_outdoor", roma_outdoor), ("roma_indoor", roma_indoor)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m = build(*paths, device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            loaded = m.net.state_dict()
+            for k, v in files.items():
+                require(torch.equal(loaded[k].float(), v.to("cuda")), f"zoo {name}: {k} is not the file's")
+            got_warp, got_cert = m.match(*pair)
+            check_output(name, "560->864 vs the seeded model", torch.bfloat16, got_warp, warp, "warp ")
+            check_output(name, "560->864 vs the seeded model", torch.bfloat16, got_cert, cert, "certainty ")
+            if name == "roma_outdoor":
+                check_match_api(m, pair, got_warp, got_cert, d)
+            torch.cuda.synchronize()
+            print(f"zoo {name}: built from the files in {load_s:.2f} s, {len(files)} tensors equal to the files'; "
+                  f"peak device memory of the load and match {torch.cuda.max_memory_allocated()} bytes; card "
+                  f"{smi_line()}", flush=True)
+            del m, loaded
+            torch.cuda.empty_cache()
+
+
+def check_match_api(m, pair, warp, cert, out_dir):
+    """match_keypoints on 5000 matches sampled from the warp,
+    conf_from_fb_consistency on its two halves and visualize_warp of the
+    pair, on the card: shapes, ranges and finiteness."""
+    import numpy as np
+    import torch
+
+    h, w = warp.shape[0], warp.shape[1] // 2
+    matches, _ = m.sample(warp, cert, num=5000, key=0)
+    k_a, k_b = m.match_keypoints(matches[:, :2], matches[:, 2:], warp, cert)
+    inds_a, inds_b = m.match_keypoints(matches[:, :2], matches[:, 2:], warp, cert, return_inds=True)
+    require(isinstance(k_a, np.ndarray) and k_a.shape == k_b.shape == (len(inds_a), 2)
+            and len(inds_a) == len(inds_b) and np.isfinite(k_a).all() and np.isfinite(k_b).all()
+            and (inds_a < 5000).all() and (inds_b < 5000).all(), "match_keypoints: bad output")
+    conf = m.conf_from_fb_consistency(warp[:, :w, 2:], warp[:, w:, :2])
+    require(conf.is_cuda and tuple(conf.shape) == (h, w) and bool(((conf == 0) | (conf == 1)).all()),
+            "conf_from_fb_consistency: bad output")
+    vis = m.visualize_warp(warp, cert, *pair, save_path=os.path.join(out_dir, "warp.png"))
+    require(vis.is_cuda and tuple(vis.shape) == (h, 2 * w, 3) and bool(torch.isfinite(vis).all())
+            and os.path.getsize(os.path.join(out_dir, "warp.png")) > 0, "visualize_warp: bad output")
+    print(f"zoo roma_outdoor: match_keypoints {len(inds_a)} mutual pairs of 5000 samples, "
+          f"conf_from_fb_consistency {conf.mean().item():.4f} consistent, visualize_warp {tuple(vis.shape)} "
+          f"in [{vis.min().item():.3f}, {vis.max().item():.3f}]", flush=True)
 
 
 def check_small_match():
@@ -1352,6 +1457,62 @@ def wrapper_host_parts(args, library):
           + ", ".join(f"{name} {host_us(fn):.2f} us" for name, fn in parts), flush=True)
 
 
+def compact_case(gen, bnt, t, kf, density):
+    """Kernel F at one of the samplers' shapes: the Case, the flags and the
+    path compact_checks picks."""
+    import torch
+
+    from roma_tpu_torch import ops
+    from roma_tpu_torch.ops import window_util as wu
+
+    miss = torch.rand(bnt, 1, t, generator=gen, device="cuda") < density
+    case = Case("compact_miss", "", lambda: ops.compact_miss(miss, t, kf),
+                lambda: ops.compact_miss_reference(miss, t, kf), bytes=bnt * t + 4 * bnt * kf, ops=bnt * t)
+    return case, miss, wu.compact_checks(miss, t, kf)
+
+
+# Kernel F's shapes: the v2 sampler's tiles at 864^2 and the v1 sampler's
+COMPACT_SHAPES = (("v2 864^2 5832 x T256 kf32", 5832, 256, 32), ("v1 864^2 392 x T4096 kf64", 392, 4096, 64))
+COMPACT_DENSITIES = (0.005, 0.05, 0.5)
+
+
+def check_compact_kernel(results, gen):
+    """Kernel F against its plain version, exactly, at COMPACT_SHAPES and
+    COMPACT_DENSITIES, on the path compact_checks picks and on the generic
+    path forced through the entry; the planted fault must break the exact
+    check. The row gets F's paths. F's first design and its launch floor
+    are timed beside it by tools/kernel_variants.py (f_first_design,
+    f_probe_floor)."""
+    import torch
+
+    from roma_tpu_torch import _ext
+    from roma_tpu_torch.ops import window_util as wu
+
+    r = results["compact_miss"]
+    paths = set()
+    for label, bnt, t, kf in COMPACT_SHAPES:
+        for density in COMPACT_DENSITIES:
+            case, miss, path = compact_case(gen, bnt, t, kf, density)
+            case.label = f"{label} {density:g}"
+            got, ref = case.kern(), case.plain()
+            torch.cuda.synchronize()
+            require(torch.equal(got, ref), f"compact_miss {case.label}: kernel disagrees with its plain version")
+            print(f"{'compact_miss':26s} {case.label:30s} int32    exact on the {path} path, "
+                  f"{int((ref < t).sum())} slots filled", flush=True)
+            check_power("compact_miss", case.label, "", ref, compact_rank_off_by_one(miss, t, kf),
+                        FAULTS["compact_miss"], exact=True)
+            record(r, 0.0, case, "bool")
+            paths.add(path)
+            out = torch.empty_like(ref)
+            _ext.check(_ext.lib().roma_compact_miss(miss.data_ptr(), out.data_ptr(), bnt, t, kf,
+                                                    wu.PATH_CODES["generic"], _ext.stream()), "compact_miss generic")
+            torch.cuda.synchronize()
+            require(torch.equal(out, ref), f"compact_miss {case.label}: the generic path disagrees")
+    r.update(path="+".join(sorted(paths)))
+    print(f"compact_miss over its {len(COMPACT_SHAPES) * len(COMPACT_DENSITIES)} calls: device {r['device_ms']:.4f} "
+          f"ms on the {r['path']} paths, bound {r['bound_ms']:.4f} ms; the generic path exact too", flush=True)
+
+
 def check_window_kernels(results):
     """Kernels F, G and H against their plain versions at the JAX design
     shapes (B = 2), and windowed_warp / windowed_grid_sample as a whole
@@ -1363,20 +1524,7 @@ def check_window_kernels(results):
     from roma_tpu_torch.ops import tile_window as tw
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    # Kernel F: the v2 sampler's tiles at 864^2 and the v1 sampler's
-    for label, bnt, t, kf in (("v2 864^2 5832 x T256 kf32", 5832, 256, 32),
-                              ("v1 864^2 392 x T4096 kf64", 392, 4096, 64)):
-        for density in (0.005, 0.05, 0.5):
-            miss = torch.rand(bnt, 1, t, generator=gen, device="cuda") < density
-            case = Case("compact_miss", f"{label} {density:g}", lambda m=miss, t=t, k=kf: ops.compact_miss(m, t, k),
-                        lambda m=miss, t=t, k=kf: ops.compact_miss_reference(m, t, k),
-                        bytes=bnt * t + 4 * bnt * kf, ops=bnt * t)
-            got, ref = case.kern(), case.plain()
-            torch.cuda.synchronize()
-            require(torch.equal(got, ref), f"compact_miss {case.label}: kernel disagrees with its plain version")
-            print(f"{'compact_miss':26s} {case.label:30s} int32    exact, {int((ref < t).sum())} slots filled",
-                  flush=True)
-            record(results["compact_miss"], 0.0, case, "bool")
+    check_compact_kernel(results, gen)
 
     spec, spec1 = tw.WarpSpec(), v1.WindowSpec()
     for dt in (torch.float32, torch.bfloat16):
@@ -1513,6 +1661,70 @@ def check_window_edges():
             whole("windowed_warp", f"v2 560^2 C{c}", dt, ops.windowed_warp, x, flow2, ops.windowed_warp.branches,
                   {"tile_recompute"} if over else set())
     torch.cuda.empty_cache()
+
+
+# Kernel F off its design shapes, (bnt, T, kf, path): the warp path with a
+# ragged last block, idle lanes (T 128, 8) and kf past T; the block path at
+# two warps with one lane in the second (T 528) and at its largest T; the
+# generic path at T not a multiple of 8 or 16 and past the block path's T
+COMPACT_EDGES = ((9, 256, 32, "warp"), (7, 128, 16, "warp"), (5, 8, 16, "warp"), (3, 256, 300, "warp"),
+                 (3, 528, 8, "block"), (2, 16384, 64, "block"), (392, 4096, 64, "block"),
+                 (4, 100, 16, "generic"), (3, 264, 32, "generic"), (2, 4100, 64, "generic"),
+                 (2, 16400, 64, "generic"))
+COMPACT_KINDS = ("none", "all", "exactly_kf", "past_kf", "random")
+
+
+def edge_miss(kind, bnt, t, kf, gen, device="cuda"):
+    """Flags for one of COMPACT_KINDS: none set, all set, exactly kf set
+    (or all of T when kf > T), min(kf, T - kf) set only at positions >= kf,
+    or a density of 0.3."""
+    import torch
+
+    if kind in ("none", "all"):
+        return torch.full((bnt, 1, t), kind == "all", dtype=torch.bool, device=device)
+    score = torch.rand(bnt, t, generator=gen, device=device)
+    if kind == "random":
+        return (score < 0.3)[:, None]
+    lo = 0 if kind == "exactly_kf" else min(kf, t)
+    score[:, :lo] = 2.0  # never among the smallest
+    n = min(kf, t - lo)
+    pos = torch.argsort(score, dim=1)[:, :n]
+    return torch.zeros(bnt, t, dtype=torch.bool, device=device).scatter_(1, pos, True)[:, None]
+
+
+def check_compact_edges():
+    """Kernel F exactly against its plain version at COMPACT_EDGES in every
+    COMPACT_KINDS, each on the path compact_checks must pick; views off the
+    vector alignment must take the generic path, and the entry must refuse
+    a vector path on such a base."""
+    import torch
+
+    from roma_tpu_torch import _ext, ops
+    from roma_tpu_torch.ops import window_util as wu
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for bnt, t, kf, path in COMPACT_EDGES:
+        for kind in COMPACT_KINDS:
+            miss = edge_miss(kind, bnt, t, kf, gen)
+            require(wu.compact_checks(miss, t, kf) == path, f"compact_miss {bnt}x{t} kf{kf}: not the {path} path")
+            ref = ops.compact_miss_reference(miss, t, kf)
+            require(torch.equal(ops.compact_miss(miss, t, kf), ref),
+                    f"compact_miss {bnt}x{t} kf{kf} {kind} ({path}): kernel disagrees with its plain version")
+        print(f"{'compact_miss':26s} {f'edges {bnt} x T{t} kf{kf}':30s} int32    exact on the {path} path "
+              f"({', '.join(COMPACT_KINDS)})", flush=True)
+    for t, offset, path in ((256, 1, "generic"), (256, 8, "warp"), (4096, 8, "generic"), (4096, 4, "generic")):
+        buf = torch.rand(4 * t + 16, generator=gen, device="cuda") < 0.1
+        miss = buf[offset:offset + 4 * t].view(4, 1, t)
+        require(wu.compact_checks(miss, t, 32) == path, f"compact_miss view {offset} bytes off: not the {path} path")
+        require(torch.equal(ops.compact_miss(miss, t, 32), ops.compact_miss_reference(miss, t, 32)),
+                f"compact_miss view {offset} bytes off ({path}): kernel disagrees with its plain version")
+        if path == "generic":
+            out = torch.empty(4, 32, 1, dtype=torch.int32, device="cuda")
+            vector = wu.PATH_CODES["warp" if t <= wu.WARP_T_MAX else "block"]
+            rc = _ext.lib().roma_compact_miss(miss.data_ptr(), out.data_ptr(), 4, t, 32, vector, _ext.stream())
+            require(rc != 0, f"compact_miss: the entry ran a vector path on a base {offset} bytes off")
+        print(f"{'compact_miss':26s} {f'view {offset} bytes off, T{t}':30s} int32    exact on the {path} path"
+              + (", the vector path refused" if path == "generic" else ""), flush=True)
 
 
 def run_window_path(results):
@@ -1989,6 +2201,10 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card")
+    # no weight download, and no weight cache read outside the checkout: the
+    # released-architecture models come up on seeded random weights
+    os.environ["ROMA_TPU_OFFLINE"] = "1"
+    os.environ["ROMA_TPU_CACHE"] = os.path.join(HERE, "build", "no_weight_cache")
     sys.path.insert(0, HERE)
     from roma_tpu_torch import _ext
     from roma_tpu_torch.models.zoo import roma_outdoor
@@ -2020,6 +2236,7 @@ def main(argv=None) -> int:
     check_attention_edges()
     check_window_kernels(results)
     check_window_edges()
+    check_compact_edges()
     check_wide_kernels(results)
     check_wide_edges()
     check_onehot_kernels(results)
@@ -2068,6 +2285,7 @@ def main(argv=None) -> int:
     require(not missing, f"kernels not launched on the main path: {missing}")
     if args.profile:
         traced("match request", lambda: request(*pairs[-1]))
+    check_zoo(model, pairs[-1], warp, cert)
     del model, warp, cert, matches
     torch.cuda.empty_cache()
 

@@ -6,6 +6,6 @@ its reference. This package imports torch, numpy and PIL only; the kernels in
 ``csrc/`` are built with nvcc at first use on a CUDA tensor (``_ext.py``),
 and CPU tensors run each kernel's plain PyTorch version.
 """
-from .models import RegressionMatcher, RoMaConfig, roma_outdoor
+from .models import RegressionMatcher, RoMaConfig, roma_indoor, roma_outdoor
 
-__all__ = ["RegressionMatcher", "RoMaConfig", "roma_outdoor"]
+__all__ = ["RegressionMatcher", "RoMaConfig", "roma_indoor", "roma_outdoor"]

@@ -41,7 +41,7 @@ SIGNATURES = {
     "roma_local_corr": [P, P, P, P, I, I, I, I, I, I, I, P],
     "roma_warp_sample": [P, P, P, I, I, I, I, I, I, I, I, P],
     "roma_refiner_block": [P, P, P, P, P, P, I, I, I, I, I, I, P],
-    "roma_compact_miss": [P, P, I, I, I, P],
+    "roma_compact_miss": [P, P, I, I, I, I, P],
     "roma_window_warp": [P] * 10 + [I] * 11 + [P],
     "roma_window_warp_v1": [P] * 10 + [I] * 11 + [P],
     "roma_refiner_chain": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],

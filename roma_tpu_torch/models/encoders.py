@@ -14,6 +14,19 @@ from .config import RoMaConfig
 from .vit import DinoV2
 
 
+def vgg19_conv_indices(channels=RoMaConfig().vgg_channels) -> list[int]:
+    """The index in ``VGG19.layers`` (torchvision's ``vgg19_bn().features``
+    index) of each conv: a conv, its BatchNorm at index + 1 and a ReLU per
+    conv, a MaxPool after each stage."""
+    out, i = [], 0
+    for stage in channels:
+        for _ in stage:
+            out.append(i)
+            i += 3
+        i += 1
+    return out
+
+
 class VGG19(nn.Module):
     """Pyramid {1: stage-1, 2: stage-2, 4: stage-3, 8: stage-4} NHWC maps,
     each taken before a MaxPool (reference encoders.py:6-27)."""

@@ -19,8 +19,8 @@ import numpy as np
 import torch
 from PIL import Image
 
-from ..ops import balanced_sample, interpolate, normalized_grid
-from ..utils.image import imagenet_normalize, load_image, resize
+from ..ops import balanced_sample, grid_sample, interpolate, normalized_grid
+from ..utils.image import imagenet_normalize, load_image, resize, to_array
 from .matcher import RoMaNet
 
 
@@ -202,3 +202,57 @@ class RegressionMatcher:
         k_A = torch.stack((2 / W_A * k_A[..., 0] - 1, 2 / H_A * k_A[..., 1] - 1), dim=-1)
         k_B = torch.stack((2 / W_B * k_B[..., 0] - 1, 2 / H_B * k_B[..., 1] - 1), dim=-1)
         return k_A, k_B
+
+    def match_keypoints(self, x_A, x_B, warp, certainty, return_tuple=True, return_inds=False, max_dist=0.005,
+                        cert_th=0):
+        """Warp-based mutual-nearest keypoint matching (reference
+        matcher.py:732-773). x_A (N, 2), x_B (M, 2) normalized keypoints;
+        computed on the warp's device, returned as numpy arrays as the JAX
+        package does (the output is ragged)."""
+        warp = torch.as_tensor(warp)
+        dev = warp.device
+        x_A, x_B = torch.as_tensor(x_A, device=dev).float(), torch.as_tensor(x_B, device=dev).float()
+        certainty = torch.as_tensor(certainty, device=dev)
+        a2b = grid_sample(warp[None, ..., -2:], x_A[None, None])[0, 0]  # (N, 2)
+        cert = grid_sample(certainty[None, ..., None], x_A[None, None])[0, 0, :, 0]
+        d = torch.linalg.norm(a2b[:, None] - x_B[None], dim=-1)  # (N, M)
+        mnn = ((d == d.min(dim=-1, keepdim=True).values) & (d == d.min(dim=-2, keepdim=True).values)
+               & (cert[:, None] > cert_th) & (d < max_dist))
+        inds_A, inds_B = (i.cpu().numpy() for i in torch.nonzero(mnn, as_tuple=True))
+        k_A, k_B = x_A.cpu().numpy()[inds_A], x_B.cpu().numpy()[inds_B]
+        if return_tuple:
+            return (inds_A, inds_B) if return_inds else (k_A, k_B)
+        return np.concatenate((inds_A, inds_B) if return_inds else (k_A, k_B), axis=-1)
+
+    def conf_from_fb_consistency(self, flow_forward, flow_backward, th=2):
+        """Forward-backward consistency mask (reference matcher.py:672-699):
+        1 where the backward flow, sampled at the forward flow, comes back
+        within ``th`` pixels (of the larger side), else 0; (B,) H, W."""
+        ff, fb = torch.as_tensor(flow_forward), torch.as_tensor(flow_backward)
+        has_batch = ff.ndim == 4
+        if not has_batch:
+            ff, fb = ff[None], fb[None]
+        h, w = ff.shape[1:3]
+        coords_fb = grid_sample(fb, ff)
+        diff = torch.linalg.norm(normalized_grid(h, w, ff.device) - coords_fb, dim=-1)
+        in_th = (diff < 2 * th / max(h, w)).float()
+        return in_th if has_batch else in_th[0]
+
+    def visualize_warp(self, warp, certainty, im_A, im_B, symmetric=True, save_path=None):
+        """Certainty-weighted cross-warped image pair (reference
+        matcher.py:936-986): each image sampled through the warp into the
+        other's frame, blended to white where the certainty is low; saved as
+        a PNG when ``save_path`` is given. Runs on the warp's device."""
+        warp = torch.as_tensor(warp)
+        h, w2 = warp.shape[:2]
+        w = w2 // 2 if symmetric else w2
+        x_A, x_B = (torch.from_numpy(to_array(load_image(im).resize((w, h)))).to(warp.device) for im in (im_A, im_B))
+        warp_im = grid_sample(x_B[None], warp[None, :, :w, 2:])[0]
+        if symmetric:
+            warp_im = torch.cat((warp_im, grid_sample(x_A[None], warp[None, :, w:, :2])[0]), dim=1)
+        cert = torch.as_tensor(certainty, device=warp.device)[..., None]
+        vis = cert * warp_im + (1 - cert) * torch.ones_like(warp_im)
+        if save_path is not None:
+            arr = (vis.clamp(0, 1) * 255).cpu().numpy().astype(np.uint8)
+            Image.fromarray(arr).save(save_path)
+        return vis

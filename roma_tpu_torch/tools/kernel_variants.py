@@ -1,9 +1,9 @@
-"""Variants of Kernels B, C, D, H, I, J, K and L timed against the sources as they stand.
+"""Variants of Kernels B, C, D, F, H, I, J, K and L timed against the sources as they stand.
 
     python3 -m roma_tpu_torch.tools.kernel_variants [--only NAME ...]
 
 Each variant is a copy of ``csrc/local_corr.cu``, ``csrc/warp_sample.cu``,
-``csrc/refiner_stack.cu``, ``csrc/refiner_chain.cu``,
+``csrc/refiner_stack.cu``, ``csrc/compact_miss.cu``, ``csrc/refiner_chain.cu``,
 ``csrc/wide_refiner.cu`` or ``csrc/onehot_dots.cu`` with named text
 replaced (VARIANTS), built alone by nvcc into
 ``build/kernel_variants/<name>.so`` (all builds in parallel) and called
@@ -11,13 +11,17 @@ through its C entry on bf16 inputs at the shapes chip_smoke.py gives the
 kernel (B's five local-correlation scales, C's nine x_hat lookups, D's and
 H's 9-block scale-1 stacks at 560^2 and 864^2, the same inputs for both;
 I's and J's seven 9-block wide-C stacks, NHWC for I, (B, H, C, W) for J;
-B = 2; K's two entries and L at tools/bench_onehot_dots.py's sizes). For
+B = 2; F at chip_smoke.py's six flag sets, the v2 and v1 samplers' tiles at
+three densities; K's two entries and L at tools/bench_onehot_dots.py's sizes). For
 each it prints the device time of each shape (calls captured in a CUDA
 graph and replayed, the median over replays), their sum, and the largest
 difference from the plain version; then the card line. The variants are
-the choices the redesigns weighed; "b", "c", "d", "h", "i", "j", "k" and
-"l" are the sources unchanged. H's group size and K's path are arguments
-of their entries (H_GROUPS, K_PATHS).
+the choices the redesigns weighed; "b", "c", "d", "f", "h", "i", "j", "k"
+and "l" are the sources unchanged. F's and K's paths and H's group size
+are arguments of their entries (F_PATHS, K_PATHS, H_GROUPS); "f_first_design"
+is F's first design, its generic path, at every shape, and
+"f_probe_floor" F's launch floor: its kernels emptied, each launched at
+the grid of the path compact_checks picks.
 "i_permute_j" is the yardstick for I: x permuted to (B, H, C, W), J's
 chain, the result permuted back, all in the timed call. Needs a CUDA card
 and nvcc.
@@ -39,6 +43,8 @@ from ..ops.local_corr import corr_checks
 from ..ops.onehot_dots import onehot_checks, window_sum_checks
 from ..ops.refiner_stack import C24_GROUP, packed_weights
 from ..ops.warp_sample import PATH_CODES, warp_sample_checks
+from ..ops.window_util import PATH_CODES as PATH_CODES_F
+from ..ops.window_util import compact_checks
 from ..ops.wide_refiner import block_w2t
 from . import card_line, cuda_ms, require_card
 
@@ -101,6 +107,14 @@ VARIANTS = {
          "  mark_rows_kernel<<<static_cast<unsigned>(mark_blocks), LT, 0, s>>>(y, j, b, rs, n, B, HP, NJ, WH, NS);\n",
          "")]),
     "l_unroll4": ("onehot_dots.cu", [("L_UNROLL = 8;", "L_UNROLL = 4;")]),
+    # F: the first design (the generic path), the tiles a block on the warp
+    # path
+    "f": ("compact_miss.cu", []),
+    "f_first_design": ("compact_miss.cu", []),
+    "f_tiles4": ("compact_miss.cu", [("WARP_TILES = 8;", "WARP_TILES = 4;")]),
+    # F's launch floor (a timing probe: every kernel returns at once, at the
+    # grid its path launches, so the output is wrong)
+    "f_probe_floor": ("compact_miss.cu", [("int T, int kf) {\n", "int T, int kf) {\n  return;\n")]),
 }
 WARP_SHAPES = (("coarse s16 40^2 C512", 40, 512), ("coarse s8 70^2 C512", 70, 512),
                ("coarse s4 140^2 C256", 140, 256), ("coarse s2 280^2 C64", 280, 64),
@@ -119,6 +133,8 @@ CORR_SHAPES = (("coarse s16 40^2 C512 r7", 40, 512, 7), ("coarse s8 70^2 C512 r3
 H_GROUPS = {"h_g1": 1, "h_g3": 3, "h_g3_rows32": 3}
 # K's variants' path (default: the plan of onehot_checks)
 K_PATHS = {"k_one_query_a_thread": "scalar"}
+# F's variants' path (default: the plan of compact_checks)
+F_PATHS = {"f_first_design": "generic"}
 P, I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -384,6 +400,31 @@ def window_call(lib, args, out, name):
     return call
 
 
+def compact_cases(gen):
+    """F on chip_smoke.py's flags: (bnt, T, kf) of the v2 and v1 samplers'
+    tiles at 864^2, each at three densities."""
+    cases = []
+    for label, bnt, t, kf in (("v2 5832 x T256", 5832, 256, 32), ("v1 392 x T4096", 392, 4096, 64)):
+        for density in (0.005, 0.05, 0.5):
+            miss = torch.rand(bnt, 1, t, generator=gen, device="cuda") < density
+            cases.append((f"{label} {density:g}", (miss, t, kf), ops.compact_miss_reference(miss, t, kf)))
+    return cases
+
+
+def compact_call(lib, args, out, name):
+    miss, t, kf = args
+    path = F_PATHS.get(name, compact_checks(miss, t, kf))
+    fn = lib.roma_compact_miss
+    fn.argtypes, fn.restype = [P, P, I, I, I, I, P], I
+    ptrs = (miss.data_ptr(), out.data_ptr())
+
+    def call():
+        if fn(*ptrs, miss.shape[0], t, kf, PATH_CODES_F[path], _ext.stream()):
+            raise RuntimeError("roma_compact_miss failed")
+        return out
+    return call
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", nargs="*", choices=sorted(VARIANTS), help="the variants to time (default: all)")
@@ -397,7 +438,8 @@ def main(argv=None) -> int:
     # their inputs
     makers = {"b": (corr_cases, corr_call), "c": (warp_cases, warp_call), "d": (stack_cases, stack_call),
               "h": (stack_cases, chain_call), "i": (lane_cases, lane_call), "j": (wide_cases, wide_call),
-              "k": (onehot_cases, onehot_call), "l": (window_cases, window_call)}
+              "k": (onehot_cases, onehot_call), "l": (window_cases, window_call),
+              "f": (compact_cases, compact_call)}
     cases = {}
     for name in names:
         lib = ctypes.CDLL(str(libs[name].resolve()))

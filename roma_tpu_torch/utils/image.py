@@ -33,6 +33,11 @@ def load_image(im) -> Image.Image:
     return im.convert("RGB")
 
 
+def to_array(im: Image.Image) -> np.ndarray:
+    """PIL -> float32 HWC in [0, 1] (torchvision ToTensor semantics)."""
+    return np.asarray(im, dtype=np.float32) / 255.0
+
+
 def resize(im: Image.Image, size_hw: tuple[int, int], mode=Image.BICUBIC) -> Image.Image:
     """Resize to (h, w) with bicubic filtering, as the reference's TupleResize."""
     h, w = size_hw

@@ -1,8 +1,8 @@
 """The port stands alone: it imports no JAX, Flax, Optax, Orbax, roma_tpu,
-graveyard or tools (the training package, the port's graveyard and tools
-included), its entry points build on the
-card unless asked for the CPU, and on CPU tensors every kernel wrapper runs
-its plain version without launching."""
+graveyard or tools (the training package, the port's graveyard and tools and
+its model zoo's loader and download modules included), its entry points
+build on the card unless asked for the CPU, and on CPU tensors every kernel
+wrapper runs its plain version without launching."""
 import ast
 import subprocess
 import sys
@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import roma_tpu_torch
-from roma_tpu_torch.models import RoMaConfig, roma_outdoor, train_net
+from roma_tpu_torch.models import RoMaConfig, roma_indoor, roma_outdoor, train_net
 from roma_tpu_torch.models.zoo import build_net
 from roma_tpu_torch.ops import (
     KERNEL_WRAPPERS,
@@ -54,7 +54,9 @@ def test_imports_and_matches_with_jax_blocked():
         "import sys\n"
         f"for m in {BANNED!r}: sys.modules[m] = None\n"
         "import numpy as np\n"
-        "from roma_tpu_torch import roma_outdoor, RoMaConfig\n"
+        "from roma_tpu_torch import roma_indoor, roma_outdoor, RoMaConfig\n"
+        "from roma_tpu_torch.models import pretrained_backbone\n"
+        "import roma_tpu_torch.models.zoo.convert, roma_tpu_torch.models.zoo.download\n"
         "import roma_tpu_torch.train\n"
         "import roma_tpu_torch.graveyard.pallas_hcw_refiner, roma_tpu_torch.graveyard.pallas_refiner_lanemajor\n"
         "import roma_tpu_torch.tools.bench_onehot_dots, roma_tpu_torch.tools.bench_hcw_refiner\n"
@@ -127,10 +129,11 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_entry_points_default_to_the_card():
-    """roma_outdoor, train_net and build_net build on the card unless the
-    caller asks for the CPU; without a card they raise."""
+    """roma_outdoor, roma_indoor, train_net and build_net build on the card
+    unless the caller asks for the CPU; without a card they raise."""
     cfg = RoMaConfig.tiny()
     builds = (lambda: roma_outdoor(config=cfg, amp=False, coarse_res=56, upsample_res=64).net,
+              lambda: roma_indoor(config=cfg, amp=False, coarse_res=56, upsample_res=64).net,
               lambda: train_net(cfg), lambda: build_net(cfg))
     for build in builds:
         if torch.cuda.is_available():

@@ -345,3 +345,40 @@ def test_window_sum_rms_error_predicts_the_kernel_order():
     rms = math.sqrt(float(np.mean(err ** 2)))
     est = chip_smoke.window_sum_rms_error(xqc, wh, ns, float(np.mean(x.astype(np.float64) ** 2)))
     assert 0.5 < rms / est < 2.0, (rms, est)
+
+
+@pytest.mark.parametrize("density", [0.005, 0.5])
+def test_compact_fault_breaks_the_exact_check(density, capsys):
+    """Kernel F's planted fault (every rank one too high) changes slots at
+    chip_smoke's v2 density extremes, and an unchanged copy fails
+    check_power."""
+    gen = torch.Generator().manual_seed(5)
+    miss = torch.rand(64, 1, 256, generator=gen) < density
+    ref = ops.compact_miss_reference(miss, 256, 32)
+    wrong = chip_smoke.compact_rank_off_by_one(miss, 256, 32)
+    assert torch.equal(wrong[:, 1:], ref[:, :-1]) and bool((wrong[:, 0] == 256).all())
+    chip_smoke.check_power("compact_miss", "cpu", "", ref, wrong, chip_smoke.FAULTS["compact_miss"], exact=True)
+    assert "exact check" in capsys.readouterr().out
+    with pytest.raises(chip_smoke.SmokeFailure, match="planted fault"):
+        chip_smoke.check_power("compact_miss", "cpu", "", ref, ref.clone(), chip_smoke.FAULTS["compact_miss"],
+                               exact=True)
+
+
+def test_compact_edges_cover_what_they_claim():
+    """Each COMPACT_EDGES case takes the path it names, and each kind of
+    flags sets what it says."""
+    from roma_tpu_torch.ops import window_util as wu
+
+    gen = torch.Generator().manual_seed(6)
+    assert {p for *_, p in chip_smoke.COMPACT_EDGES} == set(wu.PATH_CODES)
+    for bnt, t, kf, path in chip_smoke.COMPACT_EDGES:
+        counts = {}
+        for kind in chip_smoke.COMPACT_KINDS:
+            miss = chip_smoke.edge_miss(kind, bnt, t, kf, gen, device="cpu")
+            assert miss.shape == (bnt, 1, t) and miss.dtype == torch.bool
+            assert wu.compact_checks(miss, t, kf) == path
+            counts[kind] = miss.sum(-1).flatten()
+            if kind == "past_kf":
+                assert not miss[..., :kf].any()
+        assert (counts["none"] == 0).all() and (counts["all"] == t).all()
+        assert (counts["exactly_kf"] == min(kf, t)).all() and (counts["past_kf"] == min(kf, max(t - kf, 0))).all()
