@@ -34,6 +34,22 @@
    conf_from_fb_consistency and visualize_warp on the output, and prints
    each load time and peak memory. The script sets ROMA_TPU_OFFLINE=1 and
    an empty ROMA_TPU_CACHE first, so no weights are fetched or read.
+   Then the serve phase (check_serving): MatchEngine at batch 4 over 9
+   synthetic pairs written as PNG files and a 10th with a corrupt image
+   (on_error="skip"): order, the error, the padded last batch, every batch
+   row bitwise match()'s own preprocessing of its files, Kernels A-D
+   launched in every batch, each result equal to model.match of its pair
+   to the bf16 bar with the coarse classifier pinned by one peaked bias;
+   then batch 8 over 24 pairs, timed (pairs/s, host prep, peak memory).
+   Then the eval phase (check_eval): the capstone's 3 synthetic scenes
+   (roma_tpu_torch.tools.crossimpl) through run_pose_benchmark on the
+   native RANSAC, float32, against the JAX values of
+   CROSSIMPL_AUC_TORCH.json (match error within 1e-3 px, AUC drawn on the
+   host with the CPU capstone's keys within 0.5 pp); balanced_sample on the
+   card against the CPU on identical uniforms; the card-drawn AUC@5 against
+   the AUC@5 drawn from CPU generators, means over 40 seeds within 3
+   standard errors; then bf16 amp within the file's amp bar of the float32
+   AUC, both drawn on the card with the same keys.
 5. Checks one training step on the small configuration: the kernel path on
    the card against the plain path on the CPU, float32.
 6. Trains the released widths (DINOv2 frozen, bf16 autocast over float32
@@ -1042,6 +1058,288 @@ def check_match_api(m, pair, warp, cert, out_dir):
     print(f"zoo roma_outdoor: match_keypoints {len(inds_a)} mutual pairs of 5000 samples, "
           f"conf_from_fb_consistency {conf.mean().item():.4f} consistent, visualize_warp {tuple(vis.shape)} "
           f"in [{vis.min().item():.3f}, {vis.max().item():.3f}]", flush=True)
+
+
+SERVE_PAIRS, SERVE_BATCH, SERVE_TIMED_BATCH, SERVE_TIMED_PAIRS = 9, 4, 8, 24
+
+
+def check_serving(model, batch1_pairs_per_s: float):
+    """The serve phase: MatchEngine over the phase-4 model. 9 synthetic
+    720x960 pairs written as PNG files and a 10th whose A image is corrupt,
+    at batch 4 with on_error="skip": 10 results in input order, the 10th
+    carrying the error, 3 batches of 4 rows (the last padded: one pair
+    survives there), every row of every batch's input bitwise the
+    preprocessing model.match gives that pair's files, and Kernels A, B, C
+    and D launched in every batch. Then each result against model.match of
+    its pair (batch 1) to the bf16 bar, with the coarse classifier pinned by
+    one peaked gm_logit_bias on both sides: on random weights its 4096-way
+    argmax is a near-tie that bf16 at batch 4 and at batch 1 (other cuDNN
+    algorithms) break differently on a few percent of the pixels, which the
+    unpinned run prints. Then batch 8 over 24 pairs, timed after one warm-up
+    batch: pairs/s (match only) beside phase 4's batch-1 rate (match +
+    sample), the host prep of one batch of 8 timed alone, and the peak
+    device memory."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from roma_tpu_torch.serving import WORKERS, MatchEngine
+    from roma_tpu_torch.utils.image import load_image
+
+    t_phase = time.perf_counter()
+    grid, res = model.h_resized // 14, model.net.config.cls_res
+    field = peaked_bias(2, grid, grid, res)  # one A->B and one B->A field for every pair
+
+    def pinned(b):  # the symmetric batch is [A_i -> B_i ..., B_i -> A_i ...]
+        return np.concatenate([np.repeat(field[:1], b, 0), np.repeat(field[1:], b, 0)])
+
+    with tempfile.TemporaryDirectory() as d:
+        pairs = []
+        for k in range(SERVE_PAIRS):
+            pair = []
+            for im, side in zip(synthetic_pair(100 + k), "ab"):
+                pair.append(os.path.join(d, f"{side}{k}.png"))
+                im.save(pair[-1])
+            pairs.append(tuple(pair))
+        corrupt = os.path.join(d, "corrupt.png")
+        with open(corrupt, "wb") as f:
+            f.write(b"\x89PNG\r\n\x1a\n not a png")
+        pairs.append((corrupt, pairs[0][1]))
+
+        calls, pin = [], False
+        match = model.match
+
+        def counted(*a, **kw):  # each batch's inputs and launches
+            zero_counts()
+            out = match(*a, gm_logit_bias=pinned(a[0].shape[0]) if pin else None, **kw)
+            calls.append((a, kw, read_counts()))
+            return out
+
+        model.match = counted
+        try:
+            results = list(MatchEngine(model, batch_size=SERVE_BATCH).match_paths(pairs, on_error="skip"))
+            batches, calls, pin = calls, [], True
+            pinned_results = list(MatchEngine(model, batch_size=SERVE_BATCH).match_paths(pairs, on_error="skip"))
+        finally:
+            del model.match
+        require([r.index for r in results] == list(range(len(pairs))), "serve: results out of order")
+        failed = [r.index for r in results if r.error is not None]
+        require(failed == [len(pairs) - 1] and results[-1].warp is None, f"serve: failed pairs {failed}")
+        rows = [(list(r) + [r[-1]] * SERVE_BATCH)[:SERVE_BATCH] for r in ((0, 1, 2, 3), (4, 5, 6, 7), (8,))]
+        require(len(batches) == len(rows), f"serve: {len(batches)} batches")
+        for (a, kw, counts), ks in zip(batches, rows):
+            missing = [n for n in MATCH_KERNELS if counts[n] == 0]
+            require(not missing, f"serve: a batch launched no {missing}")
+            for j, k in enumerate(ks):
+                pil = [load_image(p) for p in pairs[k]]
+                for got, hw in (((a[0], a[1]), (model.h_resized, model.w_resized)),
+                                ((kw["im_A_high_res"], kw["im_B_high_res"]), model.upsample_res)):
+                    want = model._prep_pair(*pil, hw)
+                    require(all(torch.equal(g[j], w[0]) for g, w in zip(got, want)),
+                            f"serve: batch row {j} (pair {k}) is not match()'s preprocessing of its files")
+        print(f"serve: batch {SERVE_BATCH}, {len(pairs)} pairs (one corrupt), {len(batches)} batches of "
+              f"{SERVE_BATCH} rows (pairs {rows}), every row match()'s preprocessing bit for bit; launches a batch "
+              + "; ".join(", ".join(f"{n} {c[n]}" for n in MATCH_KERNELS) for _, _, c in batches), flush=True)
+        tol = BF16_REL + BF16_ABS  # the bf16 bar at max|p| = 1
+        for r, rp in zip(results[:-1], pinned_results[:-1]):
+            warp, _ = model.match(r.im_A, r.im_B)
+            off = ((r.warp - warp).abs().amax(-1) > tol).float().mean().item()
+            print(f"serve pair {r.index}: unpinned, batch 4 vs batch 1, warp off the bf16 bar on {off:.5f} "
+                  "of the pixels", flush=True)
+            warp, cert = model.match(r.im_A, r.im_B, gm_logit_bias=pinned(1))
+            check_output("serve", f"pair {r.index} vs match, pinned", torch.bfloat16, rp.warp, warp, "warp ")
+            check_output("serve", f"pair {r.index} vs match, pinned", torch.bfloat16, rp.certainty, cert, "certainty ")
+
+        stream = [pairs[k % SERVE_PAIRS] for k in range(SERVE_TIMED_PAIRS)]
+        engine = MatchEngine(model, batch_size=SERVE_TIMED_BATCH)
+        list(engine.match_paths(stream[:SERVE_TIMED_BATCH]))  # warm-up: cuDNN picks batch 8's algorithms
+        with ThreadPoolExecutor(WORKERS) as pool:
+            t0 = time.perf_counter()
+            engine._prep_batch(pool, [(k, a, b) for k, (a, b) in enumerate(stream[:SERVE_TIMED_BATCH])])
+            prep_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        timed = list(engine.match_paths(stream))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require(len(timed) == SERVE_TIMED_PAIRS and all(r.error is None for r in timed), "serve: timed run failed")
+    print(f"serve: batch {SERVE_TIMED_BATCH}, {SERVE_TIMED_PAIRS} pairs in {wall:.4f} s = "
+          f"{SERVE_TIMED_PAIRS / wall:.4f} pairs/s (match only; phase 4, batch 1, match + sample: "
+          f"{batch1_pairs_per_s:.4f} pairs/s); host prep of one batch of {SERVE_TIMED_BATCH} alone {prep_s:.4f} s; "
+          f"peak device memory {torch.cuda.max_memory_allocated()} bytes; card {smi_line()}", flush=True)
+    print(f"serve phase: {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+
+# the f32 match error is held to EVAL_PX of JAX's: ~50x the measured 2e-5 px,
+# under the 4e-3 - 5e-3 px that bf16 moves it; AUC to EVAL_PP on matched draws;
+# the card's and the CPU generator's AUC@5 means over EVAL_SEEDS seeds to
+# EVAL_SE standard errors; on identical uniforms, a sampling stage's draws on
+# the card and on the CPU may differ in DRAW_DIFF of the draws (ties at the
+# top-k boundary, last-ulp logs)
+EVAL_GAIN, EVAL_PX, EVAL_PP, EVAL_SEEDS, EVAL_SE, DRAW_DIFF = 0.02, 1e-3, 0.5, 40, 3.0, 1e-3
+
+
+def host_generator_matcher(results):
+    """``PrecomputedMatcher`` whose draws come from a CPU generator seeded
+    with the benchmark's key, computed on the warp's device."""
+    import torch
+
+    from roma_tpu_torch.ops import balanced_sample
+    from roma_tpu_torch.tools import crossimpl as xi
+
+    class HostGenerator(xi.PrecomputedMatcher):
+        def sample(self, matches, certainty, num=5000, key=None):
+            m, c = torch.as_tensor(matches).reshape(-1, 4), torch.as_tensor(certainty).reshape(-1)
+            return balanced_sample(m, c, num, generator=torch.Generator().manual_seed(int(key)), thresh=0.05,
+                                   mode="threshold_balanced")
+
+    return HostGenerator(results)
+
+
+def check_identical_uniforms(warp, cert, keys=(0, 1, 2)):
+    """balanced_sample's stages on the card against the CPU on identical
+    uniforms (CPU generators): the certainty draw (20000 of the warp's
+    pixels), the KDE of one candidate set, and the inverse-density draw
+    (5000 of those candidates) each agree but for DRAW_DIFF of the draws;
+    the whole sample's agreement is printed (a swap of two tied candidates
+    in the first stage hands them each other's second-stage uniforms)."""
+    import torch
+
+    from roma_tpu_torch.ops import balanced_sample, kde, multinomial_no_replacement
+    from roma_tpu_torch.tools import crossimpl as xi
+
+    gen = lambda k: torch.Generator().manual_seed(k)
+    apart = lambda a, b: len(set(a.tolist()) ^ set(b.tolist())) / 2 / len(a)
+    m_card, c_raw = warp.reshape(-1, 4), cert.reshape(-1).float()
+    c_card = torch.where(c_raw > 0.05, torch.ones_like(c_raw), c_raw)
+    m_cpu, c_cpu = m_card.cpu(), c_card.cpu()
+    n = xi.SAMPLE_N
+    for k in keys:
+        i_card = multinomial_no_replacement(c_card, 4 * n, gen(k)).cpu()
+        i_cpu = multinomial_no_replacement(c_cpu, 4 * n, gen(k))
+        cand = m_cpu[i_cpu]
+        den_cpu, den_card = kde(cand, std=0.1), kde(cand.cuda(), std=0.1)
+        rel = ((den_card.cpu() - den_cpu).abs() / den_cpu).max().item()
+        p = lambda d: torch.where(d < 10.0, torch.full_like(d, 1e-7), 1.0 / (d + 1.0))
+        j_card = multinomial_no_replacement(p(den_card), n, gen(k + 1)).cpu()
+        j_cpu = multinomial_no_replacement(p(den_cpu), n, gen(k + 1))
+        rows = lambda x: {tuple(r) for r in x.cpu().tolist()}
+        whole = len(rows(balanced_sample(m_card, c_raw, n, gen(k))[0]) & rows(balanced_sample(m_cpu, c_raw.cpu(), n,
+                                                                                               gen(k))[0])) / n
+        d1, d2 = apart(i_card, i_cpu), apart(j_card, j_cpu)
+        print(f"eval draws on identical uniforms, key {k}: certainty draw apart {d1:.5f}, KDE max rel "
+              f"{rel:.3e}, inverse-density draw apart {d2:.5f} (bar {DRAW_DIFF}); whole sample shared "
+              f"{whole:.4f}", flush=True)
+        require(d1 <= DRAW_DIFF and d2 <= DRAW_DIFF and rel <= 1e-4,
+                f"eval: the card's draws on identical uniforms differ from the CPU's ({d1}, {d2}, {rel})")
+
+
+def check_eval():
+    """The eval phase: the capstone's 3 synthetic scenes at 560 -> 864 on
+    the card (roma_tpu_torch.tools.crossimpl). capstone_net(0, 0.02) in
+    float32 (TF32 off, as main sets it), each scene's bias solved from the
+    card's own cls_logits; the warps through run_pose_benchmark with
+    PrecomputedMatcher and the native RANSAC. Gates, float32: the match
+    error's p50 and p95 within EVAL_PX px of the JAX values of
+    CROSSIMPL_AUC_TORCH.json; AUC@5/10/20 within EVAL_PP pp of JAX's on
+    matched draws (the warps copied to the host and sampled there with the
+    CPU capstone's keys, as its comparison (a) does: an AUC of 15 pose
+    estimates moves by ~0.5 pp between two sets of draws of one warp);
+    balanced_sample on the card against the CPU on identical uniforms
+    (check_identical_uniforms); and the AUC@5 drawn on the card against the
+    AUC@5 drawn from CPU generators with the same keys, their means over
+    benchmark seeds 0..EVAL_SEEDS-1 within EVAL_SE standard errors, both
+    spreads printed. Then the same scenes and biases under the bf16 amp
+    path: its card-drawn AUC within the file's amp bar (JAX's own
+    bf16-vs-f32 delta + 0.5 pp) of the float32 one drawn with the same keys.
+    Prints the native library's build time and the RANSAC time a repeat."""
+    import numpy as np
+    import torch
+
+    from roma_tpu_torch import native
+    from roma_tpu_torch.benchmarks.pose_bench import native_estimator, run_pose_benchmark
+    from roma_tpu_torch.tools import crossimpl as xi
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(HERE, "CROSSIMPL_AUC_TORCH.json")) as f:
+        ref = json.load(f)["560to864"]["gains"][f"{EVAL_GAIN:g}"]
+    t0 = time.perf_counter()
+    native.load()
+    print(f"eval: native RANSAC library built and loaded in {time.perf_counter() - t0:.2f} s "
+          f"({native.library_path().relative_to(HERE)})", flush=True)
+    coarse, up, n = 560, 864, xi.N_SCENES
+    pairs = xi.scene_pairs(n, up)
+    keys = ("auc_5", "auc_10", "auc_20")
+    fmt = lambda a: ", ".join(f"{k} {a[k]:.5f}" for k in keys)
+    spread = lambda v: f"mean {np.mean(v):.5f} sd {np.std(v, ddof=1):.5f} min {min(v):.5f} max {max(v):.5f}"
+    ransac_s = []
+
+    def estimator(*args):
+        t = time.perf_counter()
+        try:
+            return native_estimator(*args)
+        finally:
+            ransac_s.append(time.perf_counter() - t)
+
+    def scores(matcher, seed=0):
+        return run_pose_benchmark(matcher, pairs, estimator=estimator, repeats=xi.REPEATS, sample_n=xi.SAMPLE_N,
+                                  seed=seed, progress=False, return_errors=True)
+
+    biases, card_auc, errs = None, {}, {}
+    for label, amp in (("f32", False), ("bf16", True)):
+        net = xi.capstone_net(0, EVAL_GAIN, "cuda", amp=amp)
+        m = xi.matcher(net, coarse, up)
+        if biases is None:
+            biases = [xi.scene_bias(net, i, coarse, up) for i in range(n)]
+        res, per_scene = {}, []
+        for i, bias in enumerate(biases):
+            warp, cert = xi.match_scene(m, i, bias)
+            require(bool(torch.isfinite(warp).all() and torch.isfinite(cert).all()), f"eval {label}: non-finite")
+            res[xi.scene_tag(i)] = (warp, cert)
+            per_scene.append(xi.match_error_px(warp, i, up))
+        err = errs[label] = xi.error_percentiles(per_scene)
+        ransac_s.clear()
+        card_auc[label], card_err = scores(xi.PrecomputedMatcher(res))
+        print(f"eval {label}: match error px p50 {err['p50']:.5f} p95 {err['p95']:.5f} max {err['max']:.4f}; "
+              f"drawn on the card: {fmt(card_auc[label])}, pose errors deg {[round(e, 4) for e in card_err]}; "
+              f"RANSAC {sum(ransac_s) / len(ransac_s):.4f} s a repeat; card {smi_line()}", flush=True)
+        if label == "f32":
+            jax_err, jax_auc = ref["match_err_px"]["jax_f32"], ref["auc"]["jax_f32"]
+            for q in ("p50", "p95"):
+                require(abs(err[q] - jax_err[q]) <= EVAL_PX,
+                        f"eval: match error {q} {err[q]:.5f} px vs JAX {jax_err[q]:.5f} (bar {EVAL_PX})")
+            host_auc, host_err = scores(xi.PrecomputedMatcher({k: (w.cpu(), c.cpu()) for k, (w, c) in res.items()}))
+            d = {k: 100 * abs(host_auc[k] - jax_auc[k]) for k in keys}
+            print(f"eval f32 drawn on the host with the CPU capstone's keys: {fmt(host_auc)}, pose errors deg "
+                  f"{[round(e, 4) for e in host_err]}; JAX (CPU capstone): match error p50 {jax_err['p50']:.5f} "
+                  f"p95 {jax_err['p95']:.5f} (f32 off by {abs(err['p50'] - jax_err['p50']):.2e} / "
+                  f"{abs(err['p95'] - jax_err['p95']):.2e} px, bar {EVAL_PX}), {fmt(jax_auc)}; AUC delta pp {d}",
+                  flush=True)
+            require(max(d.values()) <= EVAL_PP, f"eval: AUC off JAX's by {d} pp (bar {EVAL_PP})")
+            check_identical_uniforms(*res[xi.scene_tag(0)])
+            t0 = time.perf_counter()
+            card = [card_auc[label]["auc_5"]] + [scores(xi.PrecomputedMatcher(res), seed)[0]["auc_5"]
+                                                 for seed in range(1, EVAL_SEEDS)]
+            host = [scores(host_generator_matcher(res), seed)[0]["auc_5"] for seed in range(EVAL_SEEDS)]
+            se = math.sqrt(np.var(card, ddof=1) / len(card) + np.var(host, ddof=1) / len(host))
+            gap = np.mean(card) - np.mean(host)
+            print(f"eval f32 AUC@5 over benchmark seeds 0-{EVAL_SEEDS - 1} ({time.perf_counter() - t0:.1f} s): "
+                  f"drawn on the card {spread(card)}; drawn from CPU generators {spread(host)}; gap "
+                  f"{gap:+.5f} = {gap / se:+.2f} standard errors (bar {EVAL_SE})", flush=True)
+            require(abs(gap) <= EVAL_SE * se, f"eval: the card's draws score {gap:+.5f} AUC@5 off the CPU "
+                                              f"generator's over {EVAL_SEEDS} seeds ({gap / se:+.2f} SE)")
+        del m, net
+        torch.cuda.empty_cache()
+    print(f"eval bf16 match error off f32: p50 {abs(errs['bf16']['p50'] - errs['f32']['p50']):.2e} p95 "
+          f"{abs(errs['bf16']['p95'] - errs['f32']['p95']):.2e} px", flush=True)
+    d = {k: 100 * abs(card_auc["bf16"][k] - card_auc["f32"][k]) for k in keys}
+    bar = ref["amp_bar_pp"]
+    print(f"eval bf16 vs f32, drawn on the card with the same keys, AUC delta pp {d} "
+          f"(bar {bar:.4f}: JAX's bf16-vs-f32 delta + 0.5)", flush=True)
+    require(max(d.values()) <= bar, f"eval: the amp path's AUC is off the f32 one by {d} pp (bar {bar})")
+    print(f"eval phase: {time.perf_counter() - t_phase:.2f} s", flush=True)
 
 
 def check_small_match():
@@ -2278,7 +2576,8 @@ def main(argv=None) -> int:
     print(f"kernel launches during the 3 requests: {launches}")
     peak = torch.cuda.max_memory_allocated()
     print("request latency s: " + " ".join(f"{t:.4f}" for t in latencies))
-    print(f"pairs/s after the first request: {(len(latencies) - 1) / sum(latencies[1:]):.4f}")
+    pairs_per_s = (len(latencies) - 1) / sum(latencies[1:])
+    print(f"pairs/s after the first request: {pairs_per_s:.4f}")
     print(f"peak device memory allocated: {peak} bytes ({peak / 2**30:.3f} GiB)")
     print(f"certainty mean {cert.mean().item():.4f}, warp range [{warp.min().item():.3f}, {warp.max().item():.3f}]")
     missing = [n for n in MATCH_KERNELS if launches[n] == 0]
@@ -2286,7 +2585,10 @@ def main(argv=None) -> int:
     if args.profile:
         traced("match request", lambda: request(*pairs[-1]))
     check_zoo(model, pairs[-1], warp, cert)
+    check_serving(model, pairs_per_s)
     del model, warp, cert, matches
+    torch.cuda.empty_cache()
+    check_eval()
     torch.cuda.empty_cache()
 
     check_small_train()

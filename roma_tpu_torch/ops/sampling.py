@@ -3,8 +3,10 @@
 
 Draws use the Gumbel top-k trick: the top-k of log(w) + Gumbel noise is k
 draws without replacement with p proportional to w. The noise comes from an
-explicit ``torch.Generator``; it is not the JAX key stream, so the tests
-check sampling by its properties.
+explicit ``torch.Generator`` and is drawn on the generator's device, then
+moved to the weights': the same generator gives the same uniforms to weights
+on the card and on the CPU. It is not the JAX key stream, so the tests check
+sampling by its properties.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ def multinomial_no_replacement(
 ) -> torch.Tensor:
     """Indices of ``num`` draws without replacement, p proportional to
     ``weights`` (>= 0); weight 0 is never drawn while others remain."""
-    u = torch.rand(weights.shape, generator=generator, device=weights.device)
+    draw_on = weights.device if generator is None else generator.device
+    u = torch.rand(weights.shape, generator=generator, device=draw_on).to(weights.device)
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
     return torch.topk(torch.log(weights.float()) + gumbel, num).indices
 

@@ -1,8 +1,9 @@
-"""Ports of the JAX package's tools/ that drive the port's graveyard and
-microbenchmark kernels: ``bench_hcw_refiner`` (Kernels I and J against the
-model's cuDNN refiner stack) and ``bench_onehot_dots`` (Kernels K and L).
-Their timings need a CUDA card; at ``device="cpu"`` their functions compute
-the same outputs through the plain versions and time nothing."""
+"""Ports of the JAX package's tools/: ``bench_hcw_refiner`` (Kernels I and J
+against the model's cuDNN refiner stack) and ``bench_onehot_dots`` (Kernels K
+and L) drive the port's graveyard and microbenchmark kernels; their timings
+need a CUDA card, and at ``device="cpu"`` their functions compute the same
+outputs through the plain versions and time nothing. ``crossimpl`` holds the
+cross-implementation capstone's synthetic scenes and seeded weights."""
 from __future__ import annotations
 
 import subprocess

@@ -75,6 +75,30 @@ def test_imports_and_matches_with_jax_blocked():
     assert res.stdout.strip().endswith("ok")
 
 
+def test_evaluation_modules_load_no_jax_cv2_or_tqdm():
+    """serving, benchmarks, native and tools.crossimpl import with JAX, the
+    JAX package, OpenCV and tqdm all unimportable (OpenCV and tqdm are
+    imported inside the functions that use them)."""
+    code = (
+        "import sys\n"
+        f"for m in {BANNED + ('cv2', 'tqdm')!r}: sys.modules[m] = None\n"
+        "import roma_tpu_torch.serving, roma_tpu_torch.benchmarks, roma_tpu_torch.native\n"
+        "import roma_tpu_torch.tools.crossimpl\n"
+        "from roma_tpu_torch.benchmarks import pose, pose_bench, mega1500, mega1500_native, scannet, hpatches\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=PKG.parent, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+    top_level = []
+    for f in [PKG / "serving.py", PKG / "native.py", PKG / "tools" / "crossimpl.py", *(PKG / "benchmarks").glob("*.py")]:
+        for node in ast.parse(f.read_text()).body:
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else \
+                [node.module or ""] if isinstance(node, ast.ImportFrom) and node.level == 0 else []
+            top_level += [f"{f.name}: {n}" for n in names if n.split(".")[0] in ("cv2", "tqdm")]
+    assert not top_level, top_level
+
+
 def test_no_source_imports_jax():
     offenders = []
     for f in sorted(PKG.rglob("*.py")):
