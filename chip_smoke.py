@@ -50,6 +50,29 @@
    the AUC@5 drawn from CPU generators, means over 40 seeds within 3
    standard errors; then bf16 amp within the file's amp bar of the float32
    AUC, both drawn on the card with the same keys.
+   Then the Tiny RoMa phase (check_tiny; no TPU kernel lies on its path,
+   so no port kernel may launch there), on seeded weights that keep the
+   activations' scale (conditioned_tiny_weights): (a) the card against the
+   CPU at 128x160, float32: the net exact and approximate on an equal and
+   an unequal pair, match, and one training step (each gradient within
+   1e-3 of its tensor's largest entry); (b) tiny_roma_v1_outdoor at the
+   released architecture (2,842,490 parameters), 3 requests on 720x960
+   synthetic pairs (704x960 inside) of match + sample(5000) +
+   to_pixel_coordinates, float32 then bf16: shapes, finite values, samples
+   in [-1, 1], latency, pairs/s and peak memory; (c) the zoo's seeded
+   random weights written as a reference-layout tiny .pth and XFeat state
+   dict and loaded again: every tensor equal to the files', the match bit
+   for bit; (d) MatchEngine(tiny, batch_size=8, resize_hw=(704, 960),
+   normalize=False) over 16 PNG pairs, each row against tiny.match of its
+   resized arrays, then timed; (e) 5 training steps at the recipe's
+   768x1024, batch 8, bf16 autocast: finite losses, XFeat's parameters and
+   statistics unchanged, the matchers' statistics moved, step time,
+   samples/s and peak memory. Comparisons of the approximate path count the
+   coarse cells whose argmax flipped between the two runs (near-ties) and
+   set aside every cell within TINY_FLIP_RADIUS of one
+   (compare_beside_flips): at most TINY_FLIPS of the cells may flip and
+   their neighbourhoods may cover at most TINY_ASIDE of the pixels, the
+   rest is held to the JAX package's bar against its torch spec.
 5. Checks one training step on the small configuration: the kernel path on
    the card against the plain path on the CPU, float32.
 6. Trains the released widths (DINOv2 frozen, bf16 autocast over float32
@@ -115,7 +138,8 @@
 
 With ``--profile``, 4 and 6 each trace one more request (the last pair
 again) and one more step (the last batch again) with torch.profiler, after
-their counted runs, and print the wall and device time of each, the card's
+their counted runs (the Tiny phase one more request in each dtype and one
+more step), and print the wall and device time of each, the card's
 idle share, the top kernels and the port's kernels by letter.
 
 Any failure exits non-zero before the last line is printed. Without a CUDA
@@ -1401,20 +1425,25 @@ def synthetic_pair(seed: int, hw=(720, 960)):
     return im_a, im_b
 
 
-def synthetic_train_batch(b: int, hw: int, seed: int, device):
-    """A training batch: textured ImageNet-normalized images with B equal to
-    A, one smooth positive depth map for both, identity pose, a pinhole K.
-    The GT warp is then the identity, valid over all but the last row and
-    column, so every loss term is active."""
+def synthetic_train_batch(b: int, hw, seed: int, device, normalize: bool = True):
+    """A training batch: textured images (ImageNet-normalized, or in [0, 1]
+    for Tiny RoMa with ``normalize=False``) with B equal to A, one smooth
+    positive depth map for both, identity pose, a pinhole K. ``hw`` is a
+    side or an (h, w). The GT warp is then the identity, valid over all but
+    the last row and column, so every loss term is active."""
     import numpy as np
     import torch
 
+    h, w = (hw, hw) if isinstance(hw, int) else hw
     rs = np.random.RandomState(seed)
     mean, std = np.array([0.485, 0.456, 0.406], np.float32), np.array([0.229, 0.224, 0.225], np.float32)
-    ims = np.stack([(texture(rs, hw, hw) - mean) / std for _ in range(b)]).astype(np.float32)
-    yy, xx = np.mgrid[0:hw, 0:hw].astype(np.float32) / hw
+    ims = np.stack([texture(rs, h, w) for _ in range(b)]).astype(np.float32)
+    if normalize:
+        ims = ((ims - mean) / std).astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    yy, xx = yy / h, xx / w
     depth = 3.0 + 0.5 * np.sin(2 * np.pi * xx * rs.uniform(0.5, 1.5)) * np.cos(2 * np.pi * yy * rs.uniform(0.5, 1.5))
-    K = np.array([[0.8 * hw, 0, hw / 2], [0, 0.8 * hw, hw / 2], [0, 0, 1]], np.float32)
+    K = np.array([[0.8 * w, 0, w / 2], [0, 0.8 * w, h / 2], [0, 0, 1]], np.float32)
     batch = {"im_A": ims, "im_B": ims.copy(),
              "im_A_depth": np.repeat(depth[None], b, 0).astype(np.float32),
              "T_1to2": np.tile(np.eye(4, dtype=np.float32), (b, 1, 1)),
@@ -2490,6 +2519,373 @@ def run_graveyard_path(results):
             and all(counts[k] >= 1 for k in GRAVEYARD_KERNELS), f"graveyard path launches {counts}")
 
 
+# --- Tiny RoMa --------------------------------------------------------------
+
+# A flipped argmax of the approximate pos-embed moves its coarse cell's warp;
+# the coarse matcher's four 3x3 layers (4 cells), the bilinear upsampling (1),
+# the fine matcher's four 3x3 layers at stride 4 (2) and the output resize
+# (1) carry it at most this many coarse cells further.
+TINY_FLIP_RADIUS = 8
+TINY_ATOL, TINY_RTOL = 5e-4, 1e-3  # the JAX package's bar against its torch spec (tests/test_tiny.py)
+# the share of coarse cells whose argmax may flip between two runs of the
+# approximate path (near-ties), and the share of output pixels that their
+# neighbourhoods may set aside, before a comparison fails
+TINY_FLIPS, TINY_ASIDE = 0.01, 0.05
+
+
+def coarse_best(net, im_A, im_B):
+    """(B, hc, wc) argmax over B's coarse cells of each A cell's correlation
+    row: the ``best`` of the approximate pos-embed, for /32 float32 inputs,
+    with the backbone batched as the net batches it."""
+    import torch
+
+    from roma_tpu_torch.models.tiny import corr_volume_qmajor
+
+    with torch.inference_mode():
+        if im_A.shape == im_B.shape:
+            f_a, f_b = net.xfeat(torch.cat((im_A, im_B)))[1].chunk(2)
+        else:
+            f_a, f_b = net.xfeat(im_A)[1], net.xfeat(im_B)[1]
+        return corr_volume_qmajor(f_a, f_b).argmax(dim=-1).reshape(f_a.shape[:3])
+
+
+def compare_beside_flips(got, want, flipped, radius: int = TINY_FLIP_RADIUS, atol: float = TINY_ATOL,
+                         rtol: float = TINY_RTOL) -> dict:
+    """Compare two approximate-path outputs (B, H, W[, C]) whose argmax
+    maps may differ at near-ties: the coarse cells ``flipped`` (B, hc, wc)
+    and every cell within ``radius`` of one are set aside (resized nearest
+    to H, W), the rest is held to ``atol + rtol * |want|``. Returns the
+    flipped count, the share of output pixels set aside, the largest excess
+    over the bar on the rest (+inf when nothing is left to compare) and the
+    largest error there, and ``ok``: at most TINY_FLIPS of the cells
+    flipped, at most TINY_ASIDE of the pixels set aside, and no excess."""
+    import torch
+    import torch.nn.functional as F
+
+    got, want = got.float().cpu(), want.float().cpu()
+    if got.ndim == 3:
+        got, want = got[..., None], want[..., None]
+    aside = F.max_pool2d(flipped.float().cpu()[:, None], 2 * radius + 1, stride=1, padding=radius)
+    aside = F.interpolate(aside, size=tuple(got.shape[1:3]), mode="nearest")[:, 0] > 0
+    err = (got - want).abs()
+    excess = (err - atol - rtol * want.abs()).amax(dim=-1)[~aside]
+    out = {"flipped": int(flipped.sum()), "aside": aside.float().mean().item(),
+           "excess": excess.max().item() if excess.numel() else math.inf,
+           "max_err": err.amax(dim=-1)[~aside].max().item() if excess.numel() else math.inf}
+    out["ok"] = out["flipped"] <= TINY_FLIPS * flipped.numel() and out["aside"] <= TINY_ASIDE and out["excess"] <= 0
+    return out
+
+
+TINY_HW, TINY_PROC = (720, 960), (704, 960)  # the request size and its /32 grid
+TINY_PARAMS = {"xfeat": 633140, "coarse_matcher": 2069763, "fine_matcher": 139587}  # JAX's init_variables
+
+
+def conditioned_tiny_weights(seed: int = 0):
+    """Reference-format (tiny .pth, XFeat hub) state dicts of seeded weights
+    that keep the activations' scale: He-scaled convs, biases 0.1 N(0, 1),
+    BN running stats drawn away from (0, 1), from a CPU generator. The zoo's
+    own seeded init, N(0, 0.02^2) as the JAX package's, shrinks XFeat's
+    coarse features below 1e-6 (tests/test_torch_tiny_zoo.py), so its
+    correlation is flat and every argmax a near-tie; comparisons need a
+    correlation that selects."""
+    import torch
+
+    from roma_tpu_torch.models.tiny import TinyRoMaNet
+    from roma_tpu_torch.models.zoo.convert import XFEAT_PREFIX, to_reference
+
+    gen = torch.Generator().manual_seed(seed)
+    net = TinyRoMaNet()
+    with torch.no_grad():
+        for name, t in net.state_dict().items():
+            if name.endswith("running_var"):
+                t.copy_(0.8 + 0.4 * torch.rand(t.shape, generator=gen))
+            elif name.endswith("running_mean"):
+                t.copy_(0.4 * torch.rand(t.shape, generator=gen) - 0.2)
+            elif name.endswith("bias"):
+                t.copy_(0.1 * torch.randn(t.shape, generator=gen))
+            elif name.endswith("weight"):
+                t.copy_(torch.randn(t.shape, generator=gen) * math.sqrt(2.0 / t[0].numel()))
+    return to_reference(net, XFEAT_PREFIX)
+
+
+def tiny_outputs(corresps) -> dict:
+    import torch
+
+    return {s: torch.cat((c["flow"], c["certainty"]), dim=-1) for s, c in corresps.items()}
+
+
+def check_beside_flips(label, got, want, flipped) -> dict:
+    """compare_beside_flips with the flip bound: prints and requires."""
+    out = compare_beside_flips(got, want, flipped)
+    print(f"tiny {label}: flipped argmax {out['flipped']} of {flipped.numel()} cells, set aside "
+          f"{out['aside']:.4f} of the pixels, max error on the rest {out['max_err']:.3e} (excess over the bar "
+          f"{out['excess']:.3e})", flush=True)
+    require(out["ok"], f"tiny {label}: {out['flipped']} argmax flips, {out['aside']:.4f} of the pixels set aside, "
+                       f"excess {out['excess']:.3e} beside them")
+    return out
+
+
+def check_tiny_small(weights, device="cuda", hw=(128, 160)):
+    """Tiny phase (a): the card against the CPU, float32, TF32 off, the
+    same conditioned weights. The net, exact and approximate, on an equal
+    and an unequal pair; ``match``; then one training step (XFeat frozen,
+    its learning rate 0) with each gradient within 1e-3 of its tensor's
+    largest entry and the running statistics within 1e-3 of their own."""
+    import numpy as np
+    import torch
+    import torch.nn as nn
+
+    from roma_tpu_torch import tiny_roma_v1_outdoor
+    from roma_tpu_torch.train import TinyRobustLosses, make_optimizer, make_train_step
+
+    rs = np.random.RandomState(5)
+    h, w = hw
+    pairs = {"equal": (texture(rs, h, w), texture(rs, h, w)), "unequal": (texture(rs, h, w), texture(rs, w, h))}
+    for exact in (True, False):
+        mode = "exact" if exact else "approximate"
+        cpu = tiny_roma_v1_outdoor(*weights, exact_softmax=exact, device="cpu")
+        card = tiny_roma_v1_outdoor(*weights, exact_softmax=exact, device=device)
+        for label, (a, b) in pairs.items():
+            ta, tb = torch.from_numpy(a)[None], torch.from_numpy(b)[None]
+            with torch.inference_mode():
+                got, want = tiny_outputs(card.net(ta.to(device), tb.to(device))), tiny_outputs(cpu.net(ta, tb))
+            flipped = torch.zeros(got[8].shape[:3], dtype=torch.bool)
+            if not exact:
+                flipped = coarse_best(card.net, ta.to(device), tb.to(device)).cpu() != coarse_best(cpu.net, ta, tb)
+            for s in (8, 4):
+                check_beside_flips(f"{mode} net {label} {h}x{w} scale {s}, card vs cpu", got[s], want[s], flipped)
+        a, b = pairs["equal"]
+        (wg, cg), (wc, cc) = card.match(a, b), cpu.match(a, b)
+        flipped = torch.zeros(1, h // 8, w // 8, dtype=torch.bool)
+        if not exact:
+            ta, tb = torch.from_numpy(a)[None], torch.from_numpy(b)[None]
+            flipped = coarse_best(card.net, ta.to(device), tb.to(device)).cpu() != coarse_best(cpu.net, ta, tb)
+        check_beside_flips(f"{mode} match {h}x{w} warp, card vs cpu", wg[None], wc[None], flipped)
+        check_beside_flips(f"{mode} match {h}x{w} certainty, card vs cpu", cg[None], cc[None], flipped)
+
+    steps = {}
+    for dev in ("cpu", device):
+        net = tiny_roma_v1_outdoor(*weights, device=dev).net.train()
+        raw = {}
+        for name, p in net.named_parameters():
+            p.register_post_accumulate_grad_hook(lambda p, name=name: raw.__setitem__(name, p.grad.clone()))
+        opt = make_optimizer(net, encoder_lr=0.0, decoder_lr=2 * 1e-4 / 8, milestones=(100,))
+        step = make_train_step(net, TinyRobustLosses(epe_mask_prob_th=0.001), opt)
+        m = step(synthetic_train_batch(2, hw, 6, dev, normalize=False))
+        stats = {k: v.cpu() for k, v in net.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+        steps[dev] = (m["loss"].item(), m["gm_corr_volume_loss_8"].item(), {k: g.cpu() for k, g in raw.items()},
+                      stats, [n for n, mod in net.named_modules() if isinstance(mod, nn.BatchNorm2d) and mod.training])
+    (lc, cvc, gc, sc, tc), (lg, cvg, gg, sg, tg) = steps["cpu"], steps[device]
+    worst = {"loss": abs(lg - lc) / abs(lc),
+             "grad (own max)": max((gg[k] - g).abs().max().item() / g.abs().max().item() for k, g in gc.items()),
+             "bn stats (own max)": max((sg[k] - v).abs().max().item() / v.abs().max().item() for k, v in sc.items())}
+    print(f"tiny train step {h}x{w} f32, card vs cpu: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f"; loss {lg:.6f} vs {lc:.6f}, corr volume loss {cvg:.6f}", flush=True)
+    require(sorted(gg) == sorted(gc) and not any(k.startswith("xfeat.") for k in gc), "tiny: XFeat got gradients")
+    require(tc == tg and len(tc) == 8 and not any(k.startswith("xfeat.") for k in tc),
+            f"tiny: BatchNorms in train mode {tg}")
+    require(cvg > 0 and all(v <= 1e-3 for v in worst.values()), "tiny small train step disagrees")
+
+
+def tiny_request(model, im_a, im_b, gen):
+    """One request: match, 5000 samples, their pixel coordinates."""
+    warp, cert = model.match(im_a, im_b)
+    matches, _ = model.sample(warp, cert, num=5000, generator=gen)
+    kpts = model.to_pixel_coordinates(matches, im_a.height, im_a.width, im_b.height, im_b.width)
+    return warp, cert, matches, kpts
+
+
+def check_tiny_requests(tiny, pairs, profile: bool = False, device="cuda") -> dict:
+    """Tiny phase (b): 3 requests on 720 x 960 synthetic pairs (each image
+    processed at 704 x 960: coarse 88 x 120), float32 and then bf16; shapes,
+    finite values, samples in [-1, 1]; latency, pairs/s after the first
+    request and peak memory. Returns pairs/s by dtype."""
+    import torch
+
+    out = {}
+    h, w = pairs[0][0].height, pairs[0][0].width
+    for dtype in (torch.float32, torch.bfloat16):
+        tiny.dtype = dtype
+        gen = torch.Generator(device=device).manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        latencies = []
+        for im_a, im_b in pairs:
+            t0 = time.perf_counter()
+            warp, cert, matches, (kpts_a, kpts_b) = tiny_request(tiny, im_a, im_b, gen)
+            torch.cuda.synchronize()
+            latencies.append(time.perf_counter() - t0)
+            require(tuple(warp.shape) == (h, w, 4) and tuple(cert.shape) == (h, w),
+                    f"tiny: warp {tuple(warp.shape)}, certainty {tuple(cert.shape)}")
+            require(bool(torch.isfinite(warp).all() and torch.isfinite(cert).all()), "tiny: non-finite match")
+            require(tuple(matches.shape) == (5000, 4) and matches.abs().max().item() <= 1.0,
+                    "tiny: samples must be (5000, 4) in [-1, 1]")
+            require(bool(torch.isfinite(kpts_a).all() and torch.isfinite(kpts_b).all()), "tiny: non-finite keypoints")
+        name = str(dtype).split(".")[-1]
+        out[name] = (len(latencies) - 1) / sum(latencies[1:])
+        peak = torch.cuda.max_memory_allocated()
+        print(f"tiny request latency s ({name}, {h}x{w} -> {h // 32 * 32}x{w // 32 * 32}): "
+              + " ".join(f"{t:.4f}" for t in latencies), flush=True)
+        print(f"tiny pairs/s after the first request ({name}): {out[name]:.4f}; peak device memory allocated "
+              f"{peak} bytes ({peak / 2**30:.3f} GiB); certainty mean {cert.mean().item():.4f}", flush=True)
+        if profile:
+            traced(f"tiny request ({name})", lambda: tiny_request(tiny, *pairs[-1], gen))
+    tiny.dtype = torch.float32
+    return out
+
+
+def check_tiny_zoo(pair, device="cuda"):
+    """Tiny phase (c): the zoo's seeded random weights written as a
+    reference-layout tiny .pth and an XFeat state dict, loaded with
+    tiny_roma_v1_outdoor(weights=, xfeat_weights=): every tensor equal to
+    the file's, the match bit for bit the seeded model's."""
+    import torch
+
+    from roma_tpu_torch import tiny_roma_v1_outdoor
+    from roma_tpu_torch.models.zoo.convert import XFEAT_PREFIX, to_reference
+
+    seeded = tiny_roma_v1_outdoor(device=device, seed=0)
+    with tempfile.TemporaryDirectory() as d:
+        paths = os.path.join(d, "tiny_roma_v1_outdoor.pth"), os.path.join(d, "xfeat.pt")
+        for sd, path in zip(to_reference(seeded.net, XFEAT_PREFIX), paths):
+            torch.save(sd, path)
+        t0 = time.perf_counter()
+        loaded = tiny_roma_v1_outdoor(*paths, device=device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        files = [torch.load(p, weights_only=True) for p in paths]
+    want = {**files[0], **{XFEAT_PREFIX + k: v for k, v in files[1].items()}}
+    got = {k: v for k, v in loaded.net.state_dict().items() if not k.endswith("num_batches_tracked")}
+    require(sorted(got) == sorted(want) and all(torch.equal(got[k].cpu(), want[k]) for k in want),
+            "tiny zoo: a loaded tensor differs from the file's")
+    (w0, c0), (w1, c1) = seeded.match(*pair), loaded.match(*pair)
+    require(torch.equal(w0, w1) and torch.equal(c0, c1), "tiny zoo: the loaded model's match differs")
+    print(f"tiny zoo: {len(want)} tensors loaded from a reference-layout pair in {load_s:.3f} s, all equal to "
+          f"the files'; the match equals the seeded model's bit for bit", flush=True)
+
+
+def check_tiny_serving(tiny, n_pairs: int = 16, batch_size: int = 8, hw=TINY_HW, proc=TINY_PROC, device="cuda"):
+    """Tiny phase (d): MatchEngine(tiny, batch_size=8, resize_hw=(704, 960),
+    normalize=False) over synthetic PNG pairs, float32: each row against
+    tiny.match of its resized [0, 1] arrays beside the argmax flips between
+    the engine's batch and one pair; then a second pass, timed (pairs/s)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from roma_tpu_torch.serving import MatchEngine
+    from roma_tpu_torch.utils.image import load_image, resize
+
+    engine = MatchEngine(tiny, batch_size=batch_size, resize_hw=proc, normalize=False)
+    with tempfile.TemporaryDirectory() as d:
+        pairs = []
+        for i in range(n_pairs):
+            names = os.path.join(d, f"a{i}.png"), os.path.join(d, f"b{i}.png")
+            for im, name in zip(synthetic_pair(100 + i, hw), names):
+                im.save(name)
+            pairs.append(names)
+        results = list(engine.match_paths(pairs))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = sum(1 for _ in engine.match_paths(pairs))
+        torch.cuda.synchronize()
+        pairs_per_s = n / (time.perf_counter() - t0)
+        arrays = [[torch.from_numpy(np.array(resize(load_image(p), proc), np.uint8)).to(device).float() / 255.0
+                   for p in pair] for pair in pairs]
+    require([r.index for r in results] == list(range(n_pairs)), "tiny engine: results out of order")
+    worst = {"flipped": 0, "aside": 0.0, "max_err": 0.0}
+    for start in range(0, n_pairs, batch_size):
+        rows = arrays[start:start + batch_size]
+        best_batch = coarse_best(tiny.net, torch.stack([a for a, _ in rows]), torch.stack([b for _, b in rows]))
+        for j, (a, b) in enumerate(rows):
+            r = results[start + j]
+            warp, cert = tiny.match(a, b)
+            flipped = (best_batch[j:j + 1] != coarse_best(tiny.net, a[None], b[None])).cpu()
+            for label, got, want in (("warp", r.warp, warp), ("certainty", r.certainty, cert)):
+                out = compare_beside_flips(got[None], want[None], flipped)
+                require(out["ok"], f"tiny engine: pair {r.index} {label} differs from match ({out})")
+                worst = {k: max(worst[k], out[k]) for k in worst}
+    print(f"tiny engine batch {batch_size}, {n_pairs} pairs at {proc[0]}x{proc[1]}: every row equals tiny.match "
+          f"beside the flips (worst pair: flipped {worst['flipped']}, set aside {worst['aside']:.4f}, max error "
+          f"{worst['max_err']:.3e}); pairs/s {pairs_per_s:.4f}", flush=True)
+    return pairs_per_s
+
+
+def train_tiny_full(weights, steps: int = 5, batch_size: int = 8, hw=(768, 1024), profile: bool = False,
+                    device="cuda"):
+    """Tiny phase (e): the recipe's training (experiments/
+    train_tiny_roma_v1_outdoor.py: 768 x 1024, batch 8, bf16 autocast, its
+    losses, grad clip 0.01) with XFeat frozen at learning rate 0, on
+    synthetic identity-pose batches: finite losses, XFeat's parameters and
+    running statistics unchanged, the matchers' moved."""
+    import torch
+
+    from roma_tpu_torch import tiny_roma_v1_outdoor
+    from roma_tpu_torch.train import TinyRobustLosses, make_optimizer, make_train_step
+
+    net = tiny_roma_v1_outdoor(*weights, device=device).net.train()
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    opt = make_optimizer(net, encoder_lr=0.0, decoder_lr=batch_size * 1e-4 / 8, milestones=(10_000,),
+                         grad_clip=0.01)
+    loss_fn = TinyRobustLosses(ce_weight=0.01, alpha=0.5, c=1e-4, epe_mask_prob_th=0.001)
+    step = make_train_step(net, loss_fn, opt, amp_dtype=torch.bfloat16)
+    # two batches in turn: a 768 x 1024 texture takes the host ~0.3 s to draw
+    batches = [synthetic_train_batch(batch_size, hw, 20 + i, device, normalize=False) for i in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(steps):
+        batch = batches[i % 2]
+        t0 = time.perf_counter()
+        m = step(batch)
+        loss, cv = m["loss"].item(), m["gm_corr_volume_loss_8"].item()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        print(f"tiny train step {i}: loss {loss:.6f} gm_corr_volume_loss_8 {cv:.6f} "
+              f"grad_norm {m['grad_norm'].item():.6e} time {times[-1]:.4f} s", flush=True)
+        require(math.isfinite(loss) and m["nonfinite_grads"].item() == 0, f"tiny train step {i}: non-finite")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"tiny train {hw[0]}x{hw[1]} batch {batch_size} bf16 autocast: step time s "
+          + " ".join(f"{t:.4f}" for t in times) + f"; samples/s after the first step "
+          f"{batch_size * (steps - 1) / sum(times[1:]):.4f}; peak device memory allocated {peak} bytes "
+          f"({peak / 2**30:.3f} GiB)", flush=True)
+    after = net.state_dict()
+    xfeat = [k for k in after if k.startswith("xfeat.")]
+    require(all(torch.equal(after[k], before[k]) for k in xfeat), "tiny train: XFeat parameters or stats moved")
+    stats = [k for k in after if k.endswith("running_mean") and not k.startswith("xfeat.")]
+    require(len(stats) == 8 and all(not torch.equal(after[k], before[k]) for k in stats),
+            "tiny train: the matchers' BatchNorm statistics did not move")
+    if profile:
+        traced("tiny train step", lambda: step(batches[-1])["loss"].item())
+
+
+def check_tiny(profile: bool = False):
+    """The Tiny RoMa phase, (a) to (e)."""
+    import torch
+
+    from roma_tpu_torch import tiny_roma_v1_outdoor
+
+    t_phase = time.perf_counter()
+    weights = conditioned_tiny_weights(0)
+    check_tiny_small(weights)
+    tiny = tiny_roma_v1_outdoor(*weights, device="cuda")
+    counts = {g: sum(p.numel() for p in getattr(tiny.net, g).parameters()) for g in TINY_PARAMS}
+    print(f"tiny_roma_v1_outdoor (released architecture, conditioned seeded weights): {sum(counts.values())} "
+          f"parameters {counts}", flush=True)
+    require(counts == TINY_PARAMS, f"tiny: parameter counts {counts}, not {TINY_PARAMS}")
+    pairs = [synthetic_pair(seed, TINY_HW) for seed in range(3)]
+    zero_counts()
+    rates = check_tiny_requests(tiny, pairs, profile=profile)
+    require(not any(read_counts().values()), "tiny: a port kernel launched on the Tiny path")
+    check_tiny_zoo(pairs[-1])
+    engine_rate = check_tiny_serving(tiny)
+    del tiny
+    torch.cuda.empty_cache()
+    train_tiny_full(weights, profile=profile)
+    torch.cuda.empty_cache()
+    print(f"tiny phase: pairs/s batch 1 f32 {rates['float32']:.4f}, bf16 {rates['bfloat16']:.4f}, engine batch 8 "
+          f"f32 {engine_rate:.4f}; {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2590,6 +2986,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     check_eval()
     torch.cuda.empty_cache()
+    check_tiny(profile=args.profile)
 
     check_small_train()
     train_full_width(results, profile=args.profile)

@@ -2,11 +2,14 @@
 roma_tpu/models/zoo/convert.py).
 
 ``tree`` is the JAX package's ``{"params", "batch_stats"}`` variables as
-nested dicts of numpy arrays. Flax conv kernels are HWIO and become OIHW
-(depthwise (K, K, 1, C) -> (C, 1, K, K)); Dense kernels (in, out) become
-Linear (out, in); the scan-stacked ``blocks/block`` and ``hidden/block``
-leaves are unstacked along axis 0; BatchNorm ``mean``/``var`` become
-``running_mean``/``running_var``. Every port tensor must be written exactly
+nested dicts of numpy arrays, of a RoMaNet or of a TinyRoMaNet (whose
+BasicLayers ``<block>_<i>`` / ``layer<i>`` become the reference's
+``<block>.<i>.layer.{0,1}``, its ``skip1`` conv ``skip1.1``, the fusion head
+``block_fusion.2`` and a matcher's ``head`` index 4). Flax conv kernels are
+HWIO and become OIHW (depthwise (K, K, 1, C) -> (C, 1, K, K)); Dense
+kernels (in, out) become Linear (out, in); the scan-stacked ``blocks/block``
+and ``hidden/block`` leaves are unstacked along axis 0; BatchNorm
+``mean``/``var`` become ``running_mean``/``running_var``. Every port tensor must be written exactly
 once, with the right shape, and no JAX leaf may be left over.
 
 :func:`to_port_layout` carries any tree of that shape, such as the JAX
@@ -31,6 +34,13 @@ _RENAMES = [
     (r"(/block1|/hidden_blocks/\d+)/conv1/", r"\1/0/"),
     (r"(/block1|/hidden_blocks/\d+)/bn/", r"\1/1/"),
     (r"(/block1|/hidden_blocks/\d+)/conv2/", r"\1/3/"),
+    (r"^xfeat/(block\d|block_fusion)_(\d+)/conv/", r"xfeat/\1/\2/layer/0/"),
+    (r"^xfeat/(block\d|block_fusion)_(\d+)/bn/", r"xfeat/\1/\2/layer/1/"),
+    (r"^xfeat/skip1/", r"xfeat/skip1/1/"),
+    (r"^xfeat/block_fusion_head/", r"xfeat/block_fusion/2/"),
+    (r"^(coarse|fine)_matcher/layer(\d+)/conv/", r"\1_matcher/\2/layer/0/"),
+    (r"^(coarse|fine)_matcher/layer(\d+)/bn/", r"\1_matcher/\2/layer/1/"),
+    (r"^(coarse|fine)_matcher/head/", r"\1_matcher/4/"),
 ]
 _LEAVES = {"kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}
 _STACKED = {"blocks/block": "blocks", "hidden/block": "hidden_blocks"}
@@ -107,7 +117,8 @@ def _apply(tree, model, write: bool):
 
 
 def from_jax_variables(tree: dict, model: torch.nn.Module) -> torch.nn.Module:
-    """Fill ``model`` (a RoMaNet) in place from JAX variables; returns it."""
+    """Fill ``model`` (a RoMaNet or a TinyRoMaNet) in place from JAX
+    variables; returns it."""
     _apply(tree, model, write=True)
     return model
 

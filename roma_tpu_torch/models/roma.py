@@ -34,6 +34,8 @@ class RegressionMatcher:
     DINOv2's parameters (in place, on ``net``) so that the coarse tokens are
     computed in it, as the JAX package's ``coarse_dtype`` does."""
 
+    input_normalized = True  # match takes ImageNet-normalized images
+
     def __init__(
         self,
         net: RoMaNet,

@@ -1,4 +1,5 @@
 """Model constructors (counterpart of roma_tpu/models/zoo/__init__.py):
+``tiny_roma_v1_outdoor`` (reference model_zoo/__init__.py:18-28),
 ``roma_outdoor`` and ``roma_indoor`` (reference model_zoo/__init__.py:31-94),
 ``train_net`` and ``pretrained_backbone`` for training.
 
@@ -35,6 +36,7 @@ import torch.nn as nn
 from ..config import RoMaConfig
 from ..matcher import RoMaNet
 from ..roma import RegressionMatcher
+from ..tiny import TinyRoMa, TinyRoMaNet
 from ..vit import LayerScale
 from . import convert, download
 
@@ -46,7 +48,12 @@ WEIGHT_URLS = {
         "outdoor": "https://github.com/Parskatt/storage/releases/download/roma/roma_outdoor.pth",
         "indoor": "https://github.com/Parskatt/storage/releases/download/roma/roma_indoor.pth",
     },
+    "tiny_roma_v1": {
+        "outdoor": "https://github.com/Parskatt/storage/releases/download/roma/tiny_roma_v1_outdoor.pth",
+    },
     "dinov2": "https://dl.fbaipublicfiles.com/dinov2/dinov2_vitl14/dinov2_vitl14_pretrain.pth",
+    # torch.hub.load('verlab/accelerated_features', 'XFeat') resolves to:
+    "xfeat": "https://github.com/verlab/accelerated_features/raw/main/weights/xfeat.pt",
     # torchvision vgg19_bn(pretrained=True), which the reference trains from
     # (encoders.py:9)
     "vgg19_bn": "https://download.pytorch.org/models/vgg19_bn-c79401a0.pth",
@@ -111,6 +118,32 @@ def train_net(config: RoMaConfig | None = None, device="cuda", seed: int = 0) ->
     parameters, DINOv2 frozen (no grad, so no optimizer state or decay),
     BatchNorms updating their running stats."""
     return init_random(build_net(config or RoMaConfig(), device), seed).train()
+
+
+def tiny_roma_v1_outdoor(weights=None, xfeat_weights=None, exact_softmax: bool = False,
+                         dtype: torch.dtype = torch.float32, device="cuda", seed: int = 0) -> TinyRoMa:
+    """Tiny RoMa v1 (reference model_zoo/__init__.py:18-28). ``weights`` is
+    tiny_roma_v1_outdoor.pth and ``xfeat_weights`` the XFeat hub checkpoint,
+    each a path or a state dict, fetched when None; both or neither. With
+    neither the net comes up on seeded random weights. ``dtype`` is the
+    compute dtype (bfloat16: autocast over float32 parameters)."""
+    if weights is None:
+        weights = _fetch_state_dict(WEIGHT_URLS["tiny_roma_v1"]["outdoor"])
+    if xfeat_weights is None:
+        xfeat_weights = _fetch_state_dict(WEIGHT_URLS["xfeat"])
+    if (weights is None) != (xfeat_weights is None):
+        # a half-pretrained matcher matches nothing: fail loudly
+        missing = "xfeat_weights" if xfeat_weights is None else "weights"
+        raise RuntimeError(f"tiny_roma_v1_outdoor: {missing} unavailable while the companion checkpoint is "
+                           "present; pass both (weights=..., xfeat_weights=...) or neither (random init).")
+    with torch.device("meta"):
+        net = TinyRoMaNet(exact_softmax=exact_softmax)
+    net = net.to_empty(device=device)
+    if weights is None:
+        init_random(net, seed)
+    else:
+        convert.load_state(net, convert.convert_tiny_roma(_state_dict(weights), _state_dict(xfeat_weights)))
+    return TinyRoMa(net, dtype=dtype, seed=seed)
 
 
 def _roma_model(

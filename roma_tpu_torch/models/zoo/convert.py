@@ -4,12 +4,15 @@ roma_tpu/models/zoo/convert.py).
 The released weights are torch ``.pth`` state dicts (reference
 romatch/models/model_zoo/__init__.py:6-15): ``roma_outdoor.pth`` /
 ``roma_indoor.pth``, which hold everything but DINOv2 (the reference keeps
-it out of its state dict), and ``dinov2_vitl14_pretrain.pth``. The port's
-modules carry the reference's names and layouts (OIHW and depthwise
-(C, 1, K, K) convs, (out, in) Linears, BatchNorm running statistics), so a
-roma key is the port's key as it is and a DINOv2 key gains the prefix
-``encoder.dinov2.``. :func:`load_state` writes every port tensor once, with
-its shape checked, and leaves no reference tensor unused.
+it out of its state dict), and ``dinov2_vitl14_pretrain.pth``; for Tiny
+RoMa ``tiny_roma_v1_outdoor.pth``, which holds the two matchers (the
+reference hides XFeat from its state dict, tiny.py:45), and the XFeat hub
+weights. The port's modules carry the reference's names and layouts (OIHW
+and depthwise (C, 1, K, K) convs, (out, in) Linears, BatchNorm running
+statistics), so a roma or tiny key is the port's key as it is, a DINOv2 key
+gains the prefix ``encoder.dinov2.`` and an XFeat key ``xfeat.``.
+:func:`load_state` writes every port tensor once, with its shape checked,
+and leaves no reference tensor unused.
 """
 from __future__ import annotations
 
@@ -24,6 +27,9 @@ VGG_PREFIX = "encoder.cnn.layers"
 # DINOv2's pretraining checkpoint also holds its masked-image-modeling
 # token, which inference never reads
 DINOV2_UNUSED = ("mask_token",)
+XFEAT_PREFIX = "xfeat."
+# the XFeat hub model's heads, which Tiny RoMa deletes (reference tiny.py:42)
+XFEAT_HEADS = ("keypoint_head.", "heatmap_head.", "fine_matcher.")
 
 
 def state_dict_to_numpy(sd) -> dict[str, np.ndarray]:
@@ -65,6 +71,16 @@ def convert_roma(roma_sd, dinov2_sd) -> dict:
     return {**roma_sd, **dino}
 
 
+def convert_tiny_roma(tiny_sd, xfeat_sd) -> dict:
+    """tiny_roma_v1_outdoor.pth + the XFeat hub state dict -> {port key:
+    array} for :func:`load_state`; XFeat's heads are dropped."""
+    xfeat = {XFEAT_PREFIX + k: v for k, v in xfeat_sd.items() if not k.startswith(XFEAT_HEADS)}
+    both = sorted(xfeat.keys() & tiny_sd.keys())
+    if both:
+        raise KeyError(f"the tiny state dict holds XFeat tensors too, e.g. {both[:3]}")
+    return {**tiny_sd, **xfeat}
+
+
 def load_state(net: nn.Module, sd: dict, prefixes: tuple[str, ...] = ("",)) -> nn.Module:
     """Fill ``net`` in place from {port key: array}: every port tensor whose
     key starts with one of ``prefixes`` written once, shapes checked, and
@@ -87,17 +103,18 @@ def load_state(net: nn.Module, sd: dict, prefixes: tuple[str, ...] = ("",)) -> n
     return net
 
 
-def to_reference(net: nn.Module) -> tuple[dict, dict]:
-    """The inverse of :func:`convert_roma`: ``net``'s tensors as a
-    reference-layout pair (roma state dict, DINOv2 state dict) of float32
-    CPU tensors, as the released files hold them."""
-    roma, dino = {}, {}
+def to_reference(net: nn.Module, prefix: str = DINO_PREFIX) -> tuple[dict, dict]:
+    """The inverse of :func:`convert_roma` (``prefix`` DINO_PREFIX) and of
+    :func:`convert_tiny_roma` (XFEAT_PREFIX): ``net``'s tensors as a
+    reference-layout pair (the roma or tiny state dict, the backbone's state
+    dict) of float32 CPU tensors, as the released files hold them."""
+    rest, backbone = {}, {}
     for k, v in net.state_dict().items():
         if k.endswith("num_batches_tracked"):
             continue
         v = v.to("cpu", torch.float32, copy=True)
-        if k.startswith(DINO_PREFIX):
-            dino[k[len(DINO_PREFIX):]] = v
+        if k.startswith(prefix):
+            backbone[k[len(prefix):]] = v
         else:
-            roma[k] = v
-    return roma, dino
+            rest[k] = v
+    return rest, backbone

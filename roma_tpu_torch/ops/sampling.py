@@ -5,8 +5,14 @@ Draws use the Gumbel top-k trick: the top-k of log(w) + Gumbel noise is k
 draws without replacement with p proportional to w. The noise comes from an
 explicit ``torch.Generator`` and is drawn on the generator's device, then
 moved to the weights': the same generator gives the same uniforms to weights
-on the card and on the CPU. It is not the JAX key stream, so the tests check
-sampling by its properties.
+on the card and on the CPU. It is not the JAX key stream; fed JAX's uniforms,
+the draws are JAX's (tests/test_torch_sampling_uniforms.py).
+
+Equal scores are ordered as ``jax.lax.top_k`` orders them, lower index
+first: float32 uniforms repeat (a 23-bit grid: ~77 equal pairs are expected
+among 36k draws), and in the balanced modes the candidates' order decides which
+second-stage uniform each one gets. ``torch.topk`` leaves that order open,
+so the draw is a stable descending sort.
 """
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ def multinomial_no_replacement(
     draw_on = weights.device if generator is None else generator.device
     u = torch.rand(weights.shape, generator=generator, device=draw_on).to(weights.device)
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
-    return torch.topk(torch.log(weights.float()) + gumbel, num).indices
+    scores = torch.log(weights.float()) + gumbel
+    return torch.sort(scores, descending=True, stable=True).indices[:num]
 
 
 def balanced_sample(

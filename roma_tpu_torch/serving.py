@@ -10,9 +10,11 @@ the card idle during every decode and resize. Here:
     batches ahead; it touches no CUDA state;
   * the images cross to the card as uint8, from pinned memory with
     ``non_blocking=True`` on a copy stream, and the match's stream waits on
-    the copy's event; the [0, 1] scaling and the ImageNet normalization run
-    on the card, as ``RegressionMatcher.match`` does for a path, so a pair's
-    result is the one ``match`` gives for it in a batch;
+    the copy's event; the [0, 1] scaling and the ImageNet normalization
+    (``normalize=True``) run on the card, as ``RegressionMatcher.match``
+    does for a path, so a pair's result is the one ``match`` gives for it in
+    a batch. A matcher without a canvas (``TinyRoMa``, which takes [0, 1]
+    images) is served with ``resize_hw=(h, w)`` and ``normalize=False``;
   * each batch is one two-pass match of ``batch_size`` pairs: the last,
     short batch is padded with its last pair and those results are dropped;
   * up to ``INFLIGHT`` matched batches may be queued on the card: a CUDA
@@ -21,13 +23,16 @@ the card idle during every decode and resize. Here:
 
 Example::
 
-    from roma_tpu_torch import roma_outdoor
+    from roma_tpu_torch import roma_outdoor, tiny_roma_v1_outdoor
     from roma_tpu_torch.serving import MatchEngine
 
     model = roma_outdoor()
     engine = MatchEngine(model, batch_size=8)
     for r in engine.match_paths([("a0.jpg", "b0.jpg"), ("a1.jpg", "b1.jpg")]):
         matches, cert = model.sample(r.warp, r.certainty, num=5000)
+
+    tiny = tiny_roma_v1_outdoor()
+    engine = MatchEngine(tiny, batch_size=8, resize_hw=(704, 960), normalize=False)
 
 Results come in input order. ``r.warp`` / ``r.certainty`` are tensors on the
 model's device (views into their batch's output); ``on_host=True`` copies
@@ -88,27 +93,42 @@ class MatchEngine:
     """Batched dense matcher over a pair stream.
 
     Args:
-      model: a ``RegressionMatcher``-style matcher with a canvas
-        (``h_resized``, ``w_resized`` and, when it upsamples,
-        ``upsample_res``) whose ``match(im_A, im_B, [im_A_high_res=,
-        im_B_high_res=])`` takes ImageNet-normalized NHWC tensors; its
-        ``device`` and ``dtype`` (CPU, float32 when it has none) are the
-        inputs'.
+      model: a matcher whose ``match(im_A, im_B, [im_A_high_res=,
+        im_B_high_res=])`` takes NHWC tensors: a ``RegressionMatcher`` with
+        its canvas (``h_resized``, ``w_resized`` and, when it upsamples,
+        ``upsample_res``), or a ``TinyRoMa``; its ``device`` and ``dtype``
+        (CPU, float32 when it has none) are the inputs'.
       batch_size: pairs a match.
+      resize_hw: the (h, w) every image is resized to, for a matcher
+        without a canvas (TinyRoMa); a RegressionMatcher defaults to its
+        own canvas.
+      normalize: ImageNet-normalize on the card. It must agree with the
+        model's ``input_normalized`` where it has one (True for a
+        RegressionMatcher; False for TinyRoMa, which takes [0, 1] images),
+        else a ValueError.
     """
 
-    def __init__(self, model, batch_size: int = 8):
+    def __init__(self, model, batch_size: int = 8, resize_hw: tuple[int, int] | None = None,
+                 normalize: bool = True):
         if batch_size < 1:
             raise ValueError(f"batch_size must be at least 1, got {batch_size}")
-        if not hasattr(model, "h_resized"):
-            raise ValueError("model has no canvas (h_resized / w_resized): MatchEngine takes a RegressionMatcher")
+        if resize_hw is None and not hasattr(model, "h_resized"):
+            raise ValueError("model has no built-in canvas (h_resized / w_resized); pass resize_hw=(h, w), e.g. "
+                             "MatchEngine(tiny, resize_hw=(448, 640), normalize=False)")
+        if getattr(model, "input_normalized", normalize) != normalize:
+            raise ValueError(f"normalize={normalize} but {type(model).__name__} takes "
+                             f"{'ImageNet-normalized' if model.input_normalized else '[0, 1]'} images")
         self.model = model
         self.batch_size = batch_size
+        self.resize_hw = None if resize_hw is None else tuple(resize_hw)
+        self.normalize = normalize
         self.device = torch.device(getattr(model, "device", "cpu"))
         self.dtype = getattr(model, "dtype", torch.float32)
         self._copy_stream = None
 
     def _resolutions(self):
+        if self.resize_hw is not None:
+            return self.resize_hw, None
         m = self.model
         up_hw = tuple(m.upsample_res) if getattr(m, "upsample_preds", False) else None
         return (m.h_resized, m.w_resized), up_hw
@@ -158,7 +178,8 @@ class MatchEngine:
         the event recorded after the match on a card, else None."""
         x = {}
         for k, v in self._to_device(batch).items():
-            x[k] = imagenet_normalize(v.float() / 255.0).to(self.dtype)
+            v = v.float() / 255.0
+            x[k] = (imagenet_normalize(v) if self.normalize else v).to(self.dtype)
         warp, certainty = self.model.match(x.pop("im_A"), x.pop("im_B"), **x)
         done = None
         if self.device.type == "cuda":

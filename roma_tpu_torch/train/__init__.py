@@ -1,9 +1,10 @@
-"""Big-RoMa training on one device (counterpart of roma_tpu/train; Tiny
-RoMa's losses wait for the Tiny RoMa port)."""
+"""Big-RoMa and Tiny RoMa training on one device (counterpart of
+roma_tpu/train)."""
 from .checkpoint import CheckPoint
 from .gt_warp import get_gt_warp, warp_kpts
 from .losses import RobustLosses
-from .optim import ema_params, make_optimizer, multistep_lr
+from .losses_tiny import TinyRobustLosses, bce_with_logits_masked, mutual_nearest_mask
+from .optim import ema_params, in_encoder, make_optimizer, multistep_lr
 from .train import (
     TrainState,
     ema_decay_schedule,
@@ -22,6 +23,10 @@ __all__ = [
     "get_gt_warp",
     "warp_kpts",
     "RobustLosses",
+    "TinyRobustLosses",
+    "bce_with_logits_masked",
+    "mutual_nearest_mask",
+    "in_encoder",
     "ema_params",
     "make_optimizer",
     "multistep_lr",

@@ -19,8 +19,9 @@ import torch.nn as nn
 
 
 def in_encoder(name: str) -> bool:
-    """The RoMaNet parameter groups: names under the top-level ``encoder``."""
-    return name.split(".")[0] == "encoder"
+    """The encoder parameter group: names under the top-level ``encoder``
+    (RoMaNet) or ``xfeat`` (TinyRoMaNet; the two nets share no name)."""
+    return name.split(".")[0] in ("encoder", "xfeat")
 
 
 def multistep_lr(base_lr: float, milestones: tuple[int, ...], gamma: float = 0.2,

@@ -1,9 +1,11 @@
 """The port stands alone: it imports no JAX, Flax, Optax, Orbax, roma_tpu,
-graveyard or tools (the training package, the port's graveyard and tools and
-its model zoo's loader and download modules included), its entry points
-build on the card unless asked for the CPU, and on CPU tensors every kernel
-wrapper runs its plain version without launching."""
+graveyard or tools (the training package, the port's graveyard and tools,
+its model zoo's loader and download modules and Tiny RoMa's modules
+included), its entry points build on the card unless asked for the CPU, and
+on CPU tensors every kernel wrapper runs its plain version without
+launching."""
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -13,7 +15,7 @@ import pytest
 import torch
 
 import roma_tpu_torch
-from roma_tpu_torch.models import RoMaConfig, roma_indoor, roma_outdoor, train_net
+from roma_tpu_torch.models import RoMaConfig, roma_indoor, roma_outdoor, tiny_roma_v1_outdoor, train_net
 from roma_tpu_torch.models.zoo import build_net
 from roma_tpu_torch.ops import (
     KERNEL_WRAPPERS,
@@ -64,13 +66,20 @@ def test_imports_and_matches_with_jax_blocked():
         "rs = np.random.RandomState(0)\n"
         "w, c = m.match(rs.randn(56, 56, 3).astype('float32'), rs.randn(56, 56, 3).astype('float32'))\n"
         "assert tuple(w.shape) == (64, 128, 4) and tuple(c.shape) == (64, 128)\n"
+        "from roma_tpu_torch import tiny_roma_v1_outdoor, TinyRoMa, TinyRoMaNet, XFeatBackbone\n"
+        "import roma_tpu_torch.models.xfeat, roma_tpu_torch.models.tiny, roma_tpu_torch.train.losses_tiny\n"
+        "from roma_tpu_torch.train import TinyRobustLosses\n"
+        "t = tiny_roma_v1_outdoor(device=\"cpu\")\n"
+        "w, c = t.match(rs.rand(70, 90, 3).astype('float32'), rs.rand(70, 90, 3).astype('float32'))\n"
+        "assert tuple(w.shape) == (70, 90, 4) and tuple(c.shape) == (70, 90)\n"
         "loaded = [k for k, v in sys.modules.items() if v is not None]\n"
         "assert not any(k == b or k.startswith(b + '.') for k in loaded\n"
         "               for b in ('roma_tpu', 'flax', 'optax', 'orbax', 'graveyard', 'tools'))\n"
         "print('ok')\n"
     )
+    # offline: the released Tiny RoMa's weights are never fetched, seeded random ones are drawn
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         cwd=PKG.parent, timeout=300)
+                         cwd=PKG.parent, timeout=300, env={**os.environ, "ROMA_TPU_OFFLINE": "1"})
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
 
@@ -152,13 +161,16 @@ def test_cpu_tensors_take_the_plain_versions():
     assert [f.launches for f in KERNEL_WRAPPERS] == counts == [0] * 14
 
 
-def test_entry_points_default_to_the_card():
-    """roma_outdoor, roma_indoor, train_net and build_net build on the card
-    unless the caller asks for the CPU; without a card they raise."""
+def test_entry_points_default_to_the_card(monkeypatch):
+    """roma_outdoor, roma_indoor, tiny_roma_v1_outdoor, train_net and
+    build_net build on the card unless the caller asks for the CPU; without
+    a card they raise. Offline: Tiny RoMa's released weights are not
+    fetched."""
+    monkeypatch.setenv("ROMA_TPU_OFFLINE", "1")
     cfg = RoMaConfig.tiny()
     builds = (lambda: roma_outdoor(config=cfg, amp=False, coarse_res=56, upsample_res=64).net,
               lambda: roma_indoor(config=cfg, amp=False, coarse_res=56, upsample_res=64).net,
-              lambda: train_net(cfg), lambda: build_net(cfg))
+              lambda: tiny_roma_v1_outdoor().net, lambda: train_net(cfg), lambda: build_net(cfg))
     for build in builds:
         if torch.cuda.is_available():
             assert next(build().parameters()).is_cuda

@@ -10,7 +10,10 @@ losing their batch; arrays are taken as images; ``on_host`` gives NumPy; the
 model receives match()'s preprocessing at both of its resolutions; no more
 than ``INFLIGHT`` matched batches wait unread. Against the JAX package's
 MatchEngine on the same weights and files: atol 2e-3 (the bar of
-tests/test_roma_parity.py:427-437)."""
+tests/test_roma_parity.py:427-437). Tiny RoMa (no canvas) through
+``resize_hw`` and ``normalize=False``: each result equal to ``match`` of its
+resized [0, 1] images, and to the JAX engine's at tests/test_tiny.py's bar;
+a ``normalize`` that disagrees with the model is refused."""
 from __future__ import annotations
 
 import numpy as np
@@ -259,3 +262,56 @@ def test_against_the_jax_engine(weights, model, paths):
         assert g.warp.shape == r.warp.shape and g.certainty.shape == r.certainty.shape
         np.testing.assert_allclose(g.warp, r.warp, rtol=0, atol=JAX_ATOL)
         np.testing.assert_allclose(g.certainty, r.certainty, rtol=0, atol=JAX_ATOL)
+
+
+# --- a matcher without a canvas: Tiny RoMa, resize_hw and normalize=False ----
+
+TINY_HW = (64, 96)
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    from roma_tpu_torch.models.tiny import TinyRoMa
+    from torch_port_fixtures import port_tiny_net, seeded_tiny_roma_variables
+
+    variables = seeded_tiny_roma_variables(0)
+    return variables, TinyRoMa(port_tiny_net(variables))
+
+
+def test_tiny_needs_resize_hw(tiny):
+    with pytest.raises(ValueError, match="resize_hw"):
+        MatchEngine(tiny[1], batch_size=2)
+
+
+def test_normalize_must_agree_with_the_model(tiny, model):
+    """normalize=True hands TinyRoMa ImageNet-normalized images and
+    normalize=False hands a RegressionMatcher [0, 1] images: both refused."""
+    with pytest.raises(ValueError, match=r"normalize=True but TinyRoMa takes \[0, 1\] images"):
+        MatchEngine(tiny[1], batch_size=2, resize_hw=TINY_HW)
+    with pytest.raises(ValueError, match="normalize=False but RegressionMatcher takes ImageNet-normalized"):
+        MatchEngine(model, batch_size=2, normalize=False)
+
+
+def test_tiny_with_resize_hw_and_no_normalization(tiny, paths):
+    """Each result equals tiny.match of its images resized to resize_hw and
+    scaled to [0, 1] (no ImageNet normalization), a batch of 2 against a
+    batch of 1; and the JAX engine's on the same weights and files at the
+    bar of tests/test_tiny.py (atol 5e-4)."""
+    from roma_tpu.models.tiny import TinyRoMa as JaxTinyRoMa
+    from roma_tpu.serving import MatchEngine as JaxEngine
+
+    variables, model = tiny
+    pairs = _pairs(paths[0], 3)
+    got = list(MatchEngine(model, batch_size=2, resize_hw=TINY_HW, normalize=False).match_paths(pairs))
+    assert [r.index for r in got] == [0, 1, 2]
+    for r in got:
+        a, b = (np.asarray(resize(load_image(p), TINY_HW), np.float32) / 255.0 for p in (r.im_A, r.im_B))
+        warp, cert = model.match(a, b)
+        assert r.warp.shape == (*TINY_HW, 4) and r.certainty.shape == TINY_HW
+        torch.testing.assert_close(r.warp, warp, rtol=0, atol=TOL)
+        torch.testing.assert_close(r.certainty, cert, rtol=0, atol=TOL)
+    ref = list(JaxEngine(JaxTinyRoMa(variables), batch_size=2, resize_hw=TINY_HW, normalize=False)
+               .match_paths(pairs, on_host=True))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.warp.numpy(), r.warp, rtol=1e-3, atol=5e-4)
+        np.testing.assert_allclose(g.certainty.numpy(), r.certainty, rtol=1e-3, atol=5e-4)

@@ -382,3 +382,38 @@ def test_compact_edges_cover_what_they_claim():
                 assert not miss[..., :kf].any()
         assert (counts["none"] == 0).all() and (counts["all"] == t).all()
         assert (counts["exactly_kf"] == min(kf, t)).all() and (counts["past_kf"] == min(kf, max(t - kf, 0))).all()
+
+
+def test_tiny_flip_comparison_sets_aside_only_near_flips():
+    """compare_beside_flips, the card run's comparison of Tiny RoMa's
+    approximate path: a difference next to a flipped argmax cell is set
+    aside, a planted fault elsewhere breaks the bar, and the share set aside
+    is that of the flipped cells' neighbourhoods. Planted: neighbourhoods
+    over TINY_ASIDE of the pixels, more flips than TINY_FLIPS, and flips
+    that leave nothing to compare all fail."""
+    rs = np.random.RandomState(0)
+    want = torch.from_numpy(rs.uniform(-1, 1, (2, 88, 120, 4)).astype(np.float32))
+    flipped = torch.zeros(2, 11, 15, dtype=torch.bool)
+    got = want + 1e-5
+    clean = chip_smoke.compare_beside_flips(got, want, flipped, radius=2)
+    assert clean["flipped"] == 0 and clean["aside"] == 0 and clean["excess"] <= 0 and clean["ok"]
+    flipped[1, 5, 7] = True
+    near = got.clone()
+    near[1, 5 * 8:6 * 8, 7 * 8:8 * 8] += 0.3  # the flipped cell's own pixels
+    out = chip_smoke.compare_beside_flips(near, want, flipped, radius=1)
+    assert out["flipped"] == 1 and out["excess"] <= 0 and out["ok"]
+    assert out["aside"] == pytest.approx(3 * 3 * 64 / (2 * 88 * 120))
+    wide = chip_smoke.compare_beside_flips(near, want, flipped, radius=2)
+    assert wide["aside"] == pytest.approx(5 * 5 * 64 / (2 * 88 * 120)) and wide["aside"] > chip_smoke.TINY_ASIDE
+    assert wide["excess"] <= 0 and not wide["ok"]
+    far = near.clone()
+    far[0, 80, 3, 2] += 0.01  # a planted fault in the other image
+    out = chip_smoke.compare_beside_flips(far, want, flipped, radius=1)
+    assert out["excess"] > 0 and not out["ok"]
+    assert chip_smoke.compare_beside_flips(got[..., 0], want[..., 0], flipped, radius=1)["ok"]
+    many = torch.zeros_like(flipped)
+    many[0, 0, :4] = True  # 4 of 330 cells, over TINY_FLIPS; their neighbourhoods stay small
+    out = chip_smoke.compare_beside_flips(got, want, many, radius=0)
+    assert out["aside"] <= chip_smoke.TINY_ASIDE and out["excess"] <= 0 and not out["ok"]
+    everywhere = chip_smoke.compare_beside_flips(got + 1.0, want, torch.ones_like(flipped), radius=0)
+    assert everywhere["aside"] == 1 and everywhere["excess"] == math.inf and not everywhere["ok"]

@@ -1,6 +1,7 @@
 """Shared inputs for the tests of the PyTorch port (tests/test_torch_*.py):
 the JAX package's tiny-config variables refilled from a numpy seed, and the
-port's RoMaNet holding the same weights."""
+port's RoMaNet holding the same weights; the same for Tiny RoMa (the XFeat
+matcher, not the tiny config of big RoMa)."""
 from __future__ import annotations
 
 import numpy as np
@@ -10,7 +11,9 @@ import jax
 
 from roma_tpu.models.config import RoMaConfig
 from roma_tpu.models.roma import RegressionMatcher as JaxMatcher
+from roma_tpu.models.tiny import TinyRoMa as JaxTinyRoMa
 from roma_tpu_torch.models.convert import from_jax_variables
+from roma_tpu_torch.models.tiny import TinyRoMaNet
 from roma_tpu_torch.models.zoo import build_net
 
 TINY = RoMaConfig.tiny()
@@ -45,6 +48,35 @@ def seeded_tiny_variables(seed: int = 0) -> dict:
 
     filled = jax.tree_util.tree_map_with_path(fill, shapes)
     return jax.tree_util.tree_map(np.asarray, filled)
+
+
+def seeded_tiny_roma_variables(seed: int = 0) -> dict:
+    """JAX TinyRoMaNet variables as nested numpy dicts, refilled from
+    ``seed``: He-scaled conv kernels (the activations keep their scale
+    through the ReLUs, so the global correlation is not flat), biases
+    0.1 N(0, 1), BN running stats drawn away from (0, 1)."""
+    shapes = JaxTinyRoMa.init_variables(fast=True)
+    rs = np.random.RandomState(seed)
+
+    def fill(path, leaf):
+        last, shape = str(getattr(path[-1], "key", path[-1])), leaf.shape
+        if last == "var":
+            val = rs.uniform(0.8, 1.2, shape)
+        elif last == "mean":
+            val = rs.uniform(-0.2, 0.2, shape)
+        elif last == "bias":
+            val = 0.1 * rs.randn(*shape)
+        else:  # conv kernels, HWIO
+            val = rs.randn(*shape) * np.sqrt(2.0 / np.prod(shape[:-1]))
+        return np.asarray(val, np.float32)
+
+    return jax.tree_util.tree_map(np.asarray, jax.tree_util.tree_map_with_path(fill, shapes))
+
+
+def port_tiny_net(variables: dict, **kw) -> TinyRoMaNet:
+    """The port's float32 TinyRoMaNet on the CPU holding ``variables``, in
+    eval mode unless ``train_mode=True`` is passed."""
+    return from_jax_variables(variables, TinyRoMaNet(**kw))
 
 
 def port_net(variables: dict) -> torch.nn.Module:
