@@ -74,11 +74,31 @@
    their neighbourhoods may cover at most TINY_ASIDE of the pixels, the
    rest is held to the JAX package's bar against its torch spec.
 5. Checks one training step on the small configuration: the kernel path on
-   the card against the plain path on the CPU, float32.
+   the card against the plain path on the CPU, float32; on the card once as
+   it is and once under remat (RoMaNet(remat=True)).
 6. Trains the released widths (DINOv2 frozen, bf16 autocast over float32
    parameters, 560^2, batch 4, the recipe's losses and optimizer) for 5
    steps on synthetic batches, and checks the losses, the gradients, the
    frozen backbone, the updates and the kernel launches.
+   Then the recipe phase (check_recipe): the training recipe of
+   roma_tpu_torch.experiments.train_roma_outdoor end to end. The card's
+   Python has no h5py, so the data is a ScanNet-format tree written here
+   (write_scannet_tree: 3 scenes of 6 cameras on a line before a textured
+   plane, 90 pairs, 640x480 JPEG colour and 16-bit PNG depth) in place of
+   MegaDepth's bands. build() at the recipe's shape (medium 560^2,
+   --gpu_batch_size 8, remat, bf16 autocast, --no-pretrained_backbone,
+   --distributed) joins a one-rank nccl process group from torchrun's
+   environment variables; 5 steps from the loader (thread-pool decode,
+   pinned copies): finite losses, samples/s after the first step
+   (StepTimer), the host's wait on the loader a step, A and E at their
+   remat counts (train_launches), B-D not launched; peak memory with remat,
+   then one step without remat at batch 8, whose peak must be higher;
+   resume: save, build() again (which loads the newest checkpoint), the
+   state equal to the saved one, one step on the same batch from both
+   within 1e-3 of the parameters' largest entry (the gather backward's
+   atomics keep it from being bitwise); then MegadepthDenseBenchmark over
+   the tree at batch 8 (16 pairs): EPE and PCK finite and in range, its
+   wall time, A-D launched.
 7. Runs the per-head attention op (ops.sdpa) forward and backward as a
    caller does, at the DINOv2 shape.
    Right after 2, holds the bf16 tensor-core attention kernels (A, E) at
@@ -152,6 +172,7 @@ import importlib.metadata
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -240,6 +261,16 @@ ONEHOT_ENTRIES = (("f32", "onehot_dot_f32", "tools/bench_onehot_dots.py:44"),
 # none of the forward-only ones
 MATCH_KERNELS = ("fused_attention_packed", "local_correlation", "warp_sample", "fused_refiner_stack")
 TRAIN_KERNELS = ("fused_attention_packed", "fused_attention_backward")
+
+
+def train_launches(cfg, remat: bool) -> dict:
+    """A and E's launches in one training step: A for DINOv2's blocks and
+    the decoder's, whose forward runs again in the backward under remat (the
+    recipe's default); E once a decoder block."""
+    return {"fused_attention_packed": cfg.dino_depth + (2 if remat else 1) * cfg.decoder_depth,
+            "fused_attention_backward": cfg.decoder_depth}
+
+
 FORWARD_ONLY = ("local_correlation", "warp_sample", "fused_refiner_stack")
 SDPA_KERNELS = ("fused_attention", "fused_attention_backward")
 ATTENTION_KERNELS = ("fused_attention_packed", "fused_attention", "fused_attention_backward")
@@ -1530,13 +1561,15 @@ KINK_FREE = ("decoder.embedding_decoder.", "decoder.gps.")
 def check_small_train():
     """One training step on the small configuration: kernels on the card
     against the plain versions on the CPU, same weights, batch and peaked
-    anchor bias, float32. Loss, every gradient leaf, BatchNorm running stats
-    and parameters after the step must agree within 1e-3 of each quantity's
-    largest magnitude: the loss's, the model gradient's (KINK_FREE leaves:
-    their own), each running buffer's, and the parameters'. Parameters are
-    held as a whole because AdamW's first step lr * g / (|g| + 1e-8) makes a
-    zero-initialized bias whose gradient is float noise (a conv bias in
-    front of a BatchNorm) +-lr on either side."""
+    anchor bias, float32; on the card once as it is and once under remat
+    (the recipe's default: the recompute runs A's forward again before E
+    reads its log-sum-exp). Loss, every gradient leaf, BatchNorm running
+    stats and parameters after the step must agree within 1e-3 of each
+    quantity's largest magnitude: the loss's, the model gradient's
+    (KINK_FREE leaves: their own), each running buffer's, and the
+    parameters'. Parameters are held as a whole because AdamW's first step
+    lr * g / (|g| + 1e-8) makes a zero-initialized bias whose gradient is
+    float noise (a conv bias in front of a BatchNorm) +-lr on either side."""
     import copy
 
     import torch
@@ -1550,8 +1583,10 @@ def check_small_train():
     # the peaked bias keeps the coarse argmax off near-ties, where one flip
     # would make the two sides' losses and gradients diverge
     bias = torch.from_numpy(peaked_bias(2, 8, 8, cfg.cls_res))
-    runs = []
-    for dev, n in (("cpu", net), ("cuda", copy.deepcopy(net).to("cuda"))):
+
+    def one_step(dev, remat):
+        n = copy.deepcopy(net).to(dev)
+        n.set_remat(remat)
         opt = make_optimizer(n, encoder_lr=2 * 5e-6 / 8, decoder_lr=2 * 1e-4 / 8, milestones=(1000,))
         b = bias.to(dev)
         step = make_train_step(n, RobustLosses(), opt, forward=lambda n, x, b=b: n(x["im_A"], x["im_B"], gm_logit_bias=b))
@@ -1559,33 +1594,35 @@ def check_small_train():
         metrics = step({k: v.to(dev) for k, v in batch.items()})
         counts = read_counts()
         grads = {k: p.grad.cpu() for k, p in n.named_parameters() if p.grad is not None}
-        runs.append((metrics["loss"].item(), grads, {k: v.cpu() for k, v in n.state_dict().items()}, counts))
-    (lc, gc, sc, _), (lg, gg, sg, counts) = runs
-    require(counts["fused_attention_backward"] == cfg.decoder_depth
-            and counts["fused_attention_packed"] == cfg.decoder_depth + cfg.dino_depth
-            and all(counts[k] == 0 for k in FORWARD_ONLY),
-            f"small train step launches {counts}")
+        return metrics["loss"].item(), grads, {k: v.cpu() for k, v in n.state_dict().items()}, counts
+
+    lc, gc, sc, _ = one_step("cpu", False)
     gmax = max(g.abs().max().item() for g in gc.values())
     pmax = max(v.abs().max().item() for k, v in sc.items() if v.is_floating_point() and "running_" not in k)
-    worst = {"loss": abs(lg - lc) / abs(lc), "grad (of the model's max)": 0.0, "grad kink-free (own max)": 0.0,
-             "bn stats (own max)": 0.0, "params (of the model's max)": 0.0}
-    for k, g in gc.items():
-        e = (gg[k] - g).abs().max().item()
-        worst["grad (of the model's max)"] = max(worst["grad (of the model's max)"], e / gmax)
-        if k.startswith(KINK_FREE):
-            worst["grad kink-free (own max)"] = max(worst["grad kink-free (own max)"], e / g.abs().max().item())
-    for k, v in sc.items():
-        if not v.is_floating_point():
-            continue
-        e = (sg[k] - v).abs().max().item()
-        if k.endswith(("running_mean", "running_var")):
-            worst["bn stats (own max)"] = max(worst["bn stats (own max)"], e / v.abs().max().item())
-        else:
-            worst["params (of the model's max)"] = max(worst["params (of the model's max)"], e / pmax)
-    print("small train step 112^2 f32, cuda kernels vs cpu plain, worst error over each quantity's "
-          "largest magnitude: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
-          + f"; loss {lg:.6f} vs {lc:.6f}; launches {counts}", flush=True)
-    require(all(v <= 1e-3 for v in worst.values()), "small-config train step disagrees")
+    for remat in (False, True):
+        lg, gg, sg, counts = one_step("cuda", remat)
+        require(all(counts[k] == n for k, n in train_launches(cfg, remat).items())
+                and all(counts[k] == 0 for k in FORWARD_ONLY),
+                f"small train step (remat {remat}) launches {counts}")
+        worst = {"loss": abs(lg - lc) / abs(lc), "grad (of the model's max)": 0.0, "grad kink-free (own max)": 0.0,
+                 "bn stats (own max)": 0.0, "params (of the model's max)": 0.0}
+        for k, g in gc.items():
+            e = (gg[k] - g).abs().max().item()
+            worst["grad (of the model's max)"] = max(worst["grad (of the model's max)"], e / gmax)
+            if k.startswith(KINK_FREE):
+                worst["grad kink-free (own max)"] = max(worst["grad kink-free (own max)"], e / g.abs().max().item())
+        for k, v in sc.items():
+            if not v.is_floating_point():
+                continue
+            e = (sg[k] - v).abs().max().item()
+            if k.endswith(("running_mean", "running_var")):
+                worst["bn stats (own max)"] = max(worst["bn stats (own max)"], e / v.abs().max().item())
+            else:
+                worst["params (of the model's max)"] = max(worst["params (of the model's max)"], e / pmax)
+        print(f"small train step 112^2 f32, cuda kernels{' under remat' if remat else ''} vs cpu plain, worst "
+              "error over each quantity's largest magnitude: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+              + f"; loss {lg:.6f} vs {lc:.6f}; launches {counts}", flush=True)
+        require(all(v <= 1e-3 for v in worst.values()), f"small-config train step (remat {remat}) disagrees")
 
 
 def train_full_width(results, steps: int = 5, batch_size: int = 4, hw: int = 560, profile: bool = False):
@@ -1649,14 +1686,225 @@ def train_full_width(results, steps: int = 5, batch_size: int = 4, hw: int = 560
                  if not any(not torch.equal(params[k], v) for k, v in before.items() if k.startswith(g + "."))]
     require(not unchanged, f"parameter groups the steps left unchanged: {unchanged}")
     cfg = net.config
-    require(counts["fused_attention_backward"] == cfg.decoder_depth * steps,
-            f"Kernel E launched {counts['fused_attention_backward']} times, not {cfg.decoder_depth * steps}")
-    require(counts["fused_attention_packed"] == (cfg.decoder_depth + cfg.dino_depth) * steps,
-            f"Kernel A launched {counts['fused_attention_packed']} times")
+    for k, n in train_launches(cfg, remat=False).items():
+        require(counts[k] == n * steps, f"{k} launched {counts[k]} times in {steps} steps, not {n * steps}")
     require(all(counts[k] == 0 for k in FORWARD_ONLY), f"forward-only kernels launched in training: {counts}")
     results["fused_attention_backward"]["launches"] = counts["fused_attention_backward"]
     if profile:
         traced("train step", lambda: step(batches[-1])["loss"].item())
+
+
+# the recipe phase's data: a ScanNet-format tree, since the card's Python has
+# no h5py for MegaDepth's depth files (a probe of that machine found none);
+# the same loader, transforms, training step and benchmark read it
+RECIPE_SCENES = 3
+RECIPE_FRAMES = 6  # frames a scene, stems 0, 10, ..., 50
+RECIPE_IMAGE_WH = (640, 480)  # ScanNet's depth size; colour written at the same size
+RECIPE_FOCAL = 500.0
+RECIPE_DEPTH_MM = 5000  # a fronto-parallel plane 5 m away
+RECIPE_BASELINE = 0.1  # frame i's camera sits 0.1 * i m to the right: 10 px of disparity a frame
+RECIPE_STEPS = 5
+RECIPE_BATCH = 8  # the recipe's --gpu_batch_size, not cut
+RECIPE_BENCH_PAIRS = 16  # two batches of 8
+
+
+def write_scannet_tree(root: str) -> int:
+    """A ScanNet-format training tree (roma_tpu_torch/datasets/scannet.py's
+    layout: scannet_indices/<scene>.npz, scans/scans_train/<scene>/{color,
+    depth, pose, intrinsic}) of RECIPE_SCENES scenes: one textured plane
+    seen by RECIPE_FRAMES cameras on a line, so that frame j is frame i's
+    texture shifted by 10 (j - i) px and the GT warp holds over the overlap.
+    Every ordered pair of distinct frames is a pair. Returns the count."""
+    import numpy as np
+    from PIL import Image
+
+    w, h = RECIPE_IMAGE_WH
+    n_pairs = 0
+    for s in range(RECIPE_SCENES):
+        rs = np.random.RandomState(100 + s)
+        shift = round(RECIPE_FOCAL * RECIPE_BASELINE * 1000 / RECIPE_DEPTH_MM)
+        wide = (texture(rs, h, w + shift * RECIPE_FRAMES) * 255).astype(np.uint8)
+        scene = f"scene{s:04d}_00"
+        sroot = os.path.join(root, "scans", "scans_train", scene)
+        for sub in ("color", "depth", "pose", "intrinsic"):
+            os.makedirs(os.path.join(sroot, sub), exist_ok=True)
+        K4 = np.eye(4)
+        K4[0, 0] = K4[1, 1] = RECIPE_FOCAL
+        K4[0, 2], K4[1, 2] = w / 2, h / 2
+        np.savetxt(os.path.join(sroot, "intrinsic", "intrinsic_color.txt"), K4, delimiter=" ")
+        depth = np.full((h, w), RECIPE_DEPTH_MM, np.uint16)
+        depth[:2] = 0  # an invalid band, as real depth maps have
+        for i in range(RECIPE_FRAMES):
+            stem = 10 * i
+            Image.fromarray(wide[:, shift * i:shift * i + w]).save(
+                os.path.join(sroot, "color", f"{stem}.jpg"), quality=92)
+            Image.frombytes("I;16", (w, h), depth.tobytes()).save(os.path.join(sroot, "depth", f"{stem}.png"))
+            cam2world = np.eye(4)
+            cam2world[0, 3] = RECIPE_BASELINE * i
+            np.savetxt(os.path.join(sroot, "pose", f"{stem}.txt"), cam2world, delimiter=" ")
+        names = [[s, 0, 10 * i, 10 * j] for i in range(RECIPE_FRAMES) for j in range(RECIPE_FRAMES) if i != j]
+        os.makedirs(os.path.join(root, "scannet_indices"), exist_ok=True)
+        np.savez(os.path.join(root, "scannet_indices", f"{scene}.npz"), name=np.array(names, np.int32),
+                 score=np.full(len(names), 0.5, np.float32))
+        n_pairs += len(names)
+    return n_pairs
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def check_recipe(profile: bool = False):
+    """The training recipe end to end on the card
+    (roma_tpu_torch.experiments.train_roma_outdoor): ``build()`` at the
+    recipe's shape (medium 560^2, batch 8, remat, bf16 autocast, no
+    pretrained backbone: the weights are not in the repository) under a
+    one-rank nccl process group set up from torchrun's environment
+    variables, over a ScanNet-format tree in place of MegaDepth's bands
+    (write_scannet_tree). 5 steps from the loader: finite losses, samples/s
+    after the first (StepTimer over the whole loop iteration: the loader's
+    wait, the pinned copy to the card and the step), the host's wait on the
+    loader a step, A and
+    E launched at their remat counts and B, C, D not at all. Peak memory with
+    remat, then one step with remat off at batch 8, whose peak must be
+    higher. Resume: save, build a fresh recipe (which loads the newest
+    checkpoint), require its state equal to the saved one, take one step on
+    the same batch from both and require the parameters to agree within
+    1e-3 of their largest entry. Then MegadepthDenseBenchmark over the tree
+    at batch 8: EPE and PCK finite and in range, A-D launched. With
+    ``profile``, one more step on the last batch, traced, before the step
+    without remat."""
+    import numpy as np
+    import torch
+
+    from roma_tpu_torch.benchmarks import MegadepthDenseBenchmark
+    from roma_tpu_torch.datasets import ScanNetBuilder
+    from roma_tpu_torch.experiments import train_roma_outdoor as recipe
+    from roma_tpu_torch.experiments.common import DeviceBatches, epoch_loader
+    from roma_tpu_torch.models import RegressionMatcher
+    from roma_tpu_torch.parallel import dist
+    from roma_tpu_torch.train import train_k_steps
+    from roma_tpu_torch.utils.profiling import StepTimer
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    work = tempfile.mkdtemp(prefix="recipe_", dir=os.path.join(HERE, "build"))
+    t0 = time.perf_counter()
+    n_pairs = write_scannet_tree(os.path.join(work, "scannet"))
+    print(f"recipe: wrote a ScanNet-format tree, {RECIPE_SCENES} scenes, {n_pairs} pairs, "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    args = recipe.parser().parse_args([
+        "--ckpt_dir", os.path.join(work, "ckpt"), "--gpu_batch_size", str(RECIPE_BATCH),
+        "--train_resolution", "medium", "--no-pretrained_backbone", "--distributed", "--num_workers", "8"])
+    require(args.remat and args.bf16, "the recipe's defaults must be remat and bf16")
+
+    h, w = recipe.RESOLUTIONS[args.train_resolution]
+    ds = ScanNetBuilder(os.path.join(work, "scannet")).build_concat(ht=h, wt=w, use_horizontal_flip_aug=True)
+    t0 = time.perf_counter()
+    r = recipe.build(args, data=(ds, ScanNetBuilder.weight_scenes(ds, alpha=0.75)))
+    torch.cuda.synchronize()
+    require(dist.active() and torch.distributed.get_backend() == "nccl" and dist.world_size() == 1,
+            "the recipe did not join a one-rank nccl group")
+    print(f"recipe: build() in {time.perf_counter() - t0:.2f} s on {r.device}, nccl world size "
+          f"{dist.world_size()}, {len(r.dataset)} pairs, {r.n_steps} steps to run", flush=True)
+    cfg = r.state.net.config
+    loader = epoch_loader(r.dataset, r.weights, r.batch_size, np.random.RandomState(0), args.num_workers)
+    require(len(loader) >= RECIPE_STEPS, f"the loader gives {len(loader)} batches, fewer than {RECIPE_STEPS}")
+    batches = DeviceBatches(loader, r.device)
+    timer = StepTimer(items_per_step=RECIPE_BATCH, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    it = iter(batches)
+    try:
+        for i in range(RECIPE_STEPS):
+            with timer:  # the whole iteration: the loader's wait, the pinned copy to the card, the step
+                batch = next(it)
+                r.state, m = train_k_steps(r.state, [batch], r.step)
+                loss, nonfinite = m["loss"].item(), m["nonfinite_grads"].item()
+            print(f"recipe step {i}: loss {loss:.6f} grad_norm {m['grad_norm'].item():.6e} "
+                  f"gm_cls_loss_16 {m['gm_cls_loss_16'].item():.4f} wait {batches.waits[i]:.4f} s", flush=True)
+            require(math.isfinite(loss) and nonfinite == 0,
+                    f"recipe step {i}: loss {loss}, {nonfinite} non-finite leaves")
+    finally:
+        it.close()  # stops the loader's threads
+    last = batch
+    counts = read_counts()
+    peak_remat = torch.cuda.max_memory_allocated()
+    print(f"recipe: kernel launches in {RECIPE_STEPS} steps {counts}")
+    for k, n in train_launches(cfg, remat=True).items():
+        require(counts[k] == n * RECIPE_STEPS, f"recipe: {k} launched {counts[k]} times, not {n * RECIPE_STEPS}")
+    require(all(counts[k] == 0 for k in FORWARD_ONLY), f"recipe: forward-only kernels launched in training {counts}")
+    waits = batches.waits[:RECIPE_STEPS]
+    print(f"recipe 560^2 batch {RECIPE_BATCH} remat bf16: iteration times (loader, copy, step) after the first "
+          + " ".join(f"{t:.4f}" for t in timer.times) + f" s; samples/s {timer.items_per_sec:.4f}; loader wait a "
+          f"step {sum(waits) / len(waits):.4f} s (steps 1-{RECIPE_STEPS - 1}: {sum(waits[1:]) / (len(waits) - 1):.4f} s); "
+          f"peak device memory with remat {peak_remat} bytes ({peak_remat / 2**30:.3f} GiB); card {card}", flush=True)
+
+    if profile:
+        traced("recipe step (remat, batch 8)", lambda: r.step(last)["loss"].item())
+    r.state.net.set_remat(False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    r.state, m = train_k_steps(r.state, [last], r.step)
+    require(math.isfinite(m["loss"].item()), "recipe: the step without remat gave a non-finite loss")
+    peak_plain = torch.cuda.max_memory_allocated()
+    plain_counts = read_counts()
+    r.state.net.set_remat(True)
+    print(f"recipe: one step without remat at batch {RECIPE_BATCH}: peak {peak_plain} bytes "
+          f"({peak_plain / 2**30:.3f} GiB), remat's {peak_remat / peak_plain:.4f} of it; A launched "
+          f"{plain_counts['fused_attention_packed']} times", flush=True)
+    require(peak_remat < peak_plain, "recipe: remat's peak memory is not below the step without it")
+    require(all(plain_counts[k] == n for k, n in train_launches(cfg, remat=False).items()),
+            f"recipe: without remat {plain_counts}")
+
+    t0 = time.perf_counter()
+    r.checkpointer.save(r.state)
+    r2 = recipe.build(args, data=(r.dataset, r.weights))
+    torch.cuda.synchronize()
+    t_resume = time.perf_counter() - t0
+    sd, sd2 = r.state.net.state_dict(), r2.state.net.state_dict()
+    require(r2.state.step == r.state.step == RECIPE_STEPS + 1
+            and r2.state.optimizer.count == r.state.optimizer.count
+            and all(torch.equal(sd[k], sd2[k]) for k in sd),
+            "recipe: the resumed state is not the saved one")
+    m1, m2 = r.step(last), r2.step(last)
+    p1, p2 = dict(r.state.net.named_parameters()), dict(r2.state.net.named_parameters())
+    pmax = max(p.detach().abs().max().item() for p in p1.values())
+    perr = max((p1[k] - p2[k]).abs().max().item() for k in p1)
+    lerr = abs(m1["loss"].item() - m2["loss"].item()) / abs(m1["loss"].item())
+    lrs = [g["lr"] for g in r.state.optimizer.param_groups], [g["lr"] for g in r2.state.optimizer.param_groups]
+    print(f"recipe resume: save + build + load {t_resume:.2f} s; one step on the same batch: loss rel. error "
+          f"{lerr:.3e}, params max error {perr:.3e} of their largest entry {pmax:.4f} ({perr / pmax:.3e}, bar 1e-3); "
+          f"learning rates {lrs[0]} / {lrs[1]}", flush=True)
+    require(perr <= 1e-3 * pmax and lerr <= 1e-3 and lrs[0] == lrs[1], "recipe: the resumed step disagrees")
+    del r2, m2, p2, sd2
+    torch.cuda.empty_cache()
+
+    bench = MegadepthDenseBenchmark(dataset=r.dataset, num_samples=RECIPE_BENCH_PAIRS)
+    model = RegressionMatcher(r.state.net, h=h, w=w, upsample_preds=False, symmetric=False)
+    zero_counts()
+    t0 = time.perf_counter()
+    out = bench.benchmark(model, batch_size=RECIPE_BATCH)
+    torch.cuda.synchronize()
+    t_bench = time.perf_counter() - t0
+    bench_counts = read_counts()
+    print(f"recipe dense benchmark, {RECIPE_BENCH_PAIRS} pairs at batch {RECIPE_BATCH}, 560^2 float32: {out}; "
+          f"wall {t_bench:.3f} s; launches {bench_counts}; card {card}", flush=True)
+    require(all(math.isfinite(v) for v in out.values()) and out["epe"] >= 0
+            and 0 <= out["mega_pck_1"] <= out["mega_pck_3"] <= out["mega_pck_5"] <= 1,
+            f"recipe: dense benchmark out of range {out}")
+    require(all(bench_counts[k] > 0 for k in MATCH_KERNELS), f"recipe: the benchmark's match skipped a kernel {bench_counts}")
+    dist.shutdown()
+    del r, model
+    torch.cuda.empty_cache()
+    shutil.rmtree(work)
+    print(f"recipe phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def run_sdpa_path(results):
@@ -2991,6 +3239,7 @@ def main(argv=None) -> int:
     check_small_train()
     train_full_width(results, profile=args.profile)
     torch.cuda.empty_cache()
+    check_recipe(profile=args.profile)
     run_sdpa_path(results)
     torch.cuda.empty_cache()
     run_window_path(results)

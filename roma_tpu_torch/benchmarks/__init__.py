@@ -1,6 +1,7 @@
 """The pose and homography benchmarks (counterpart of
 roma_tpu/benchmarks/): Mega-1500 / Mega-8-scenes, Mega-1500 on the native
-RANSAC, ScanNet-1500 and HPatches, over a shared engine (``pose_bench``).
+RANSAC, ScanNet-1500 and HPatches, over a shared engine (``pose_bench``),
+and the MegaDepth dense-warp benchmark (EPE, PCK).
 Imports NumPy and PIL only; OpenCV and tqdm are imported by the functions
 that use them."""
 from .hpatches import HpatchesHomogBenchmark
@@ -11,6 +12,7 @@ from .mega1500 import (
     load_megadepth_pairs,
 )
 from .mega1500_native import Mega1500NativePoseBenchmark
+from .mega_dense import MegadepthDenseBenchmark
 from .pose import (
     compute_pose_error,
     compute_relative_pose,
@@ -35,6 +37,7 @@ __all__ = [
     "MEGA_8_SCENES",
     "MEGA_1500_SCENES",
     "MegaDepthPoseEstimationBenchmark",
+    "MegadepthDenseBenchmark",
     "PosePair",
     "ScanNetBenchmark",
     "cv2_estimator",

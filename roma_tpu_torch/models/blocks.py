@@ -1,6 +1,7 @@
 """Shared conv building blocks (counterpart of roma_tpu/models/blocks.py):
 the big-RoMa refiner block, and the BasicLayer, ConvStack and instance norm
-of XFeat and Tiny RoMa.
+of XFeat and Tiny RoMa; and :func:`checkpointed`, the rematerialization of
+the training path (RoMaNet(remat=True)).
 
 The port's public tensors are NHWC like the JAX package's; torch's conv and
 BatchNorm modules take NCHW. :func:`nhwc` runs such a module on an NHWC
@@ -10,13 +11,43 @@ made on the way in or out.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 
 def nhwc(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Apply an NCHW module to an NHWC tensor, returning NHWC."""
     return module(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+@contextlib.contextmanager
+def frozen_bn_stats(module: nn.Module):
+    """Leave the BatchNorm running statistics and counters under ``module``
+    as they were on entry. A rematerialized forward normalizes with its batch
+    statistics as the first forward did, but its BatchNorms would move their
+    running statistics a second time; this restores them."""
+    bufs = [b for m in module.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)
+            for b in (m.running_mean, m.running_var, m.num_batches_tracked) if b is not None]
+    saved = [b.clone() for b in bufs]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, s in zip(bufs, saved):
+                b.copy_(s)
+
+
+def checkpointed(module: nn.Module, *args, **kwargs):
+    """``module(*args, **kwargs)`` under ``torch.utils.checkpoint``
+    (non-reentrant; the JAX package's ``nn.remat``): its activations are
+    recomputed in the backward instead of kept, and the recompute runs in
+    :func:`frozen_bn_stats`, so a step moves each running statistic once.
+    Autocast's state is restored for the recompute by checkpoint itself."""
+    return checkpoint(module, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), frozen_bn_stats(module)), **kwargs)
 
 
 def refiner_block(in_dim: int, out_dim: int, kernel: int = 5) -> nn.Sequential:

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from .blocks import checkpointed
 from .config import RoMaConfig
 from .vit import DinoV2
 
@@ -64,10 +65,13 @@ class CNNandDinov2(nn.Module):
     (roma_tpu/models/encoders.py:102): its parameters do not require grad
     and it runs under ``torch.no_grad``, so no graph is recorded and its
     attention takes Kernel A's forward-only launch. The VGG BatchNorms
-    follow the module's train/eval mode."""
+    follow the module's train/eval mode. ``remat``: in training the VGG
+    pyramid runs under :func:`checkpointed` (roma_tpu/models/encoders.py:86);
+    DINOv2 records no graph, so it has nothing to recompute."""
 
-    def __init__(self, config: RoMaConfig = RoMaConfig()):
+    def __init__(self, config: RoMaConfig = RoMaConfig(), remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.cnn = VGG19(config.vgg_channels)
         self.dinov2 = DinoV2(
             embed_dim=config.dino_dim, depth=config.dino_depth, num_heads=config.dino_heads,
@@ -75,7 +79,7 @@ class CNNandDinov2(nn.Module):
         ).requires_grad_(False)
 
     def forward(self, x: torch.Tensor, upsample: bool = False) -> dict[int, torch.Tensor]:
-        pyramid = self.cnn(x)
+        pyramid = checkpointed(self.cnn, x) if self.remat and self.training else self.cnn(x)
         if not upsample:
             with torch.no_grad():  # in DINOv2's own dtype (RegressionMatcher's coarse_dtype)
                 pyramid[16] = self.dinov2(x.to(self.dinov2.cls_token.dtype))

@@ -20,6 +20,13 @@ Under ``torch.autocast`` the GP (kernel matrices, Cholesky, triangular
 solves) and every out_conv stay in float32, the JAX package's float32
 islands.
 
+``RoMaNet(remat=True)`` rematerializes the training forward at the JAX
+package's sites (roma_tpu/models/matcher.py:194-200, 314-315, 338): the GP,
+the TransformerDecoder, each ConvRefiner and each of its blocks run under
+:func:`~.blocks.checkpointed`, which keeps the parameter names and moves each
+BatchNorm's running statistics once a step. Kernel A's forward runs again
+for the TransformerDecoder's blocks in the backward.
+
 Module names follow the released checkpoint (``decoder.gps.16``,
 ``decoder.proj.{s}.{0,1}``, ``decoder.conv_refiner.{s}.block1``,
 ``hidden_blocks.{j}``, ``out_conv``, ``disp_emb``).
@@ -44,7 +51,7 @@ from ..ops import (
     warp_sample_reference,
 )
 from ..ops.refiner_stack import MAX_C
-from .blocks import nhwc, refiner_block
+from .blocks import checkpointed, nhwc, refiner_block
 from .config import RefinerSpec, RoMaConfig
 from .encoders import CNNandDinov2
 from .vit import Block
@@ -117,9 +124,10 @@ class TransformerDecoder(nn.Module):
 class ConvRefiner(nn.Module):
     """Per-scale refinement CNN (reference matcher.py:23-179)."""
 
-    def __init__(self, spec: RefinerSpec):
+    def __init__(self, spec: RefinerSpec, remat: bool = False):
         super().__init__()
         self.spec = spec
+        self.remat = remat
         k = spec.kernel_size
         self.block1 = refiner_block(spec.in_dim, spec.hidden_dim, k)
         self.hidden_blocks = nn.ModuleList(
@@ -158,8 +166,8 @@ class ConvRefiner(nn.Module):
             if self.training:
                 # recompute the per-tap gathers in the backward instead of
                 # saving them, as the JAX package checkpoints its chunks
-                # (local_corr.py:337-347). Only BN-free code may sit under
-                # checkpoint: the recompute would move running stats twice.
+                # (local_corr.py:337-347). It holds no BatchNorm, so plain
+                # checkpoint will do (blocks.checkpointed is for code that does).
                 corr = checkpoint(local_correlation_reference, x, y, s.local_corr_radius, flow,
                                   use_reentrant=False)
             else:
@@ -168,6 +176,11 @@ class ConvRefiner(nn.Module):
         d = torch.cat(parts, dim=-1)
         if not self.training and s.hidden_dim <= MAX_C:
             d = fused_refiner_stack(d, self.folded_blocks())
+        elif self.remat and self.training:
+            d = d.permute(0, 3, 1, 2)
+            for blk in (self.block1, *self.hidden_blocks):
+                d = checkpointed(blk, d)
+            d = d.permute(0, 2, 3, 1)
         else:
             d = nhwc(self.block1, d)
             for blk in self.hidden_blocks:
@@ -183,8 +196,9 @@ class Decoder(nn.Module):
 
     REFINE_INIT = 4  # delta-flow scale of the reference decoder
 
-    def __init__(self, config: RoMaConfig = RoMaConfig()):
+    def __init__(self, config: RoMaConfig = RoMaConfig(), remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.embedding_decoder = TransformerDecoder(
             config.decoder_depth, config.decoder_dim, config.decoder_heads, config.cls_res**2 + 1
         )
@@ -194,8 +208,14 @@ class Decoder(nn.Module):
             for s, (cin, cout) in config.proj_specs().items()
         })
         self.conv_refiner = nn.ModuleDict({
-            str(s): ConvRefiner(spec) for s, spec in config.refiner_specs().items()
+            str(s): ConvRefiner(spec, remat) for s, spec in config.refiner_specs().items()
         })
+
+    def _call(self, module: nn.Module, *args, **kwargs):
+        """``module(*args, **kwargs)``, under checkpoint in training with remat."""
+        if self.remat and self.training:
+            return checkpointed(module, *args, **kwargs)
+        return module(*args, **kwargs)
 
     def forward(self, f1, f2, upsample=False, flow=None, certainty=None,
                 scale_factor: float = 1.0, gm_logit_bias=None):
@@ -227,8 +247,8 @@ class Decoder(nn.Module):
             f1_s = nhwc(proj, f1[ins].to(dt)).contiguous()
             f2_s = nhwc(proj, f2[ins].to(dt)).contiguous()
             if ins == 16 and not upsample:
-                gp_posterior = self.gps["16"](f1_s, f2_s)
-                cls_logits, certainty = self.embedding_decoder(gp_posterior, f1_s)
+                gp_posterior = self._call(self.gps["16"], f1_s, f2_s)
+                cls_logits, certainty = self._call(self.embedding_decoder, gp_posterior, f1_s)
                 if gm_logit_bias is not None:
                     cls_logits = cls_logits + gm_logit_bias
                 flow = cls_to_flow_refine(cls_logits)
@@ -237,8 +257,8 @@ class Decoder(nn.Module):
             flow = flow.float().contiguous()
             if self.training:
                 out["flow_pre_delta"] = flow
-            delta_flow, delta_certainty = self.conv_refiner[str(ins)](
-                f1_s, f2_s, flow, scale_factor=scale_factor
+            delta_flow, delta_certainty = self._call(
+                self.conv_refiner[str(ins)], f1_s, f2_s, flow, scale_factor=scale_factor
             )
             if self.training:
                 out["delta_flow"] = delta_flow
@@ -258,13 +278,23 @@ class Decoder(nn.Module):
 
 class RoMaNet(nn.Module):
     """Encoder + decoder with the reference's A|B concat batching
-    (reference matcher.py:585-670)."""
+    (reference matcher.py:585-670). ``remat`` rematerializes the training
+    forward (see the module's docstring); it changes no value and no
+    parameter name."""
 
-    def __init__(self, config: RoMaConfig = RoMaConfig()):
+    def __init__(self, config: RoMaConfig = RoMaConfig(), remat: bool = False):
         super().__init__()
         self.config = config
-        self.encoder = CNNandDinov2(config)
-        self.decoder = Decoder(config)
+        self.encoder = CNNandDinov2(config, remat)
+        self.decoder = Decoder(config, remat)
+
+    def set_remat(self, on: bool) -> "RoMaNet":
+        """Switch remat at every site: each submodule that holds a ``remat``
+        flag (the encoder, the decoder, each ConvRefiner)."""
+        for m in self.modules():
+            if hasattr(m, "remat"):
+                m.remat = on
+        return self
 
     def forward(self, im_A, im_B, symmetric: bool = False, upsample=False, flow=None,
                 certainty=None, scale_factor: float = 1.0, gm_logit_bias=None):

@@ -106,18 +106,19 @@ def set_precision(net: RoMaNet, dtype: torch.dtype) -> RoMaNet:
     return net
 
 
-def build_net(config: RoMaConfig, device="cuda") -> RoMaNet:
+def build_net(config: RoMaConfig, device="cuda", remat: bool = False) -> RoMaNet:
     """Unfilled RoMaNet on ``device`` (allocated, not initialized)."""
     with torch.device("meta"):
-        net = RoMaNet(config)
+        net = RoMaNet(config, remat=remat)
     return net.to_empty(device=device)
 
 
-def train_net(config: RoMaConfig | None = None, device="cuda", seed: int = 0) -> RoMaNet:
+def train_net(config: RoMaConfig | None = None, device="cuda", seed: int = 0, remat: bool = False) -> RoMaNet:
     """RoMaNet in training mode on seeded random weights: float32
     parameters, DINOv2 frozen (no grad, so no optimizer state or decay),
-    BatchNorms updating their running stats."""
-    return init_random(build_net(config or RoMaConfig(), device), seed).train()
+    BatchNorms updating their running stats. ``remat`` recomputes the
+    training forward's activations in the backward (RoMaNet)."""
+    return init_random(build_net(config or RoMaConfig(), device, remat), seed).train()
 
 
 def tiny_roma_v1_outdoor(weights=None, xfeat_weights=None, exact_softmax: bool = False,

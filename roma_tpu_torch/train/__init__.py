@@ -1,5 +1,5 @@
-"""Big-RoMa and Tiny RoMa training on one device (counterpart of
-roma_tpu/train)."""
+"""Big-RoMa and Tiny RoMa training, on one device or data-parallel under a
+torch.distributed process group (counterpart of roma_tpu/train)."""
 from .checkpoint import CheckPoint
 from .gt_warp import get_gt_warp, warp_kpts
 from .losses import RobustLosses

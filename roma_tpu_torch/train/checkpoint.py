@@ -6,6 +6,12 @@ optimizer state, step, EMA} to ``<dir>/<name>/step_<n>.pt``, keeping the two
 newest. ``load`` restores the newest into a state in place; a missing
 checkpoint leaves the state as it is, and an optimizer state that does not
 fit the optimizer is skipped, as the JAX package tolerates a partial restore.
+A restored state goes on exactly where it stopped: the step, the
+optimizer's update count (so the learning-rate schedule), AdamW's moments
+and the EMA with its ramp (train_k_steps counts EMA updates from the step).
+
+Under a process group rank 0 writes, every rank waits at a barrier, then
+each rank reads the file onto its own device.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ from pathlib import Path
 
 import torch
 
+from ..parallel import dist
 from .train import TrainState
 
 
@@ -29,16 +36,18 @@ class CheckPoint:
 
     def save(self, state: TrainState) -> Path:
         path = self.dir / f"step_{state.step}.pt"
-        tmp = path.with_suffix(".tmp")
-        torch.save({
-            "net": state.net.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "step": state.step,
-            "ema_params": state.ema_params,
-        }, tmp)
-        os.replace(tmp, path)  # a reader never sees a partial file
-        for old in self._files()[:-self.MAX_TO_KEEP]:
-            old.unlink()
+        if dist.rank() == 0:
+            tmp = path.with_suffix(".tmp")
+            torch.save({
+                "net": state.net.state_dict(),
+                "optimizer": state.optimizer.state_dict(),
+                "step": state.step,
+                "ema_params": state.ema_params,
+            }, tmp)
+            os.replace(tmp, path)  # a reader never sees a partial file
+            for old in self._files()[:-self.MAX_TO_KEEP]:
+                old.unlink()
+        dist.barrier()
         return path
 
     def load(self, state: TrainState) -> TrainState:

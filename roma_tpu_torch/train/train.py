@@ -1,11 +1,17 @@
-"""Training step and loop on one device (counterpart of
-roma_tpu/train/train.py; reference romatch/train/train.py:23-64).
+"""Training step and loop (counterpart of roma_tpu/train/train.py;
+reference romatch/train/train.py:23-64).
 
 PyTorch idiom in place of the JAX package's pure step: the module holds the
 parameters and BatchNorm running stats, the optimizer its own state, and a
 step updates both in place. bf16 compute comes from ``torch.autocast``
 around the forward, over float32 master parameters; the loss runs in
-float32 outside it. Data-parallel training waits for a later change.
+float32 outside it.
+
+Data parallelism (parallel/dist.py): under a process group the step does
+what the JAX step does under a mesh (train.py:134-140): the gradients are
+averaged over the ranks before the gradient statistics and the optimizer,
+the BatchNorm running statistics after the update, and the loss and
+metrics with them. Each rank's forward normalizes with its own batch.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from typing import Callable, Iterable
 import torch
 import torch.nn as nn
 
+from ..parallel import dist
 from .optim import RoMaOptimizer, in_encoder
 
 
@@ -91,7 +98,9 @@ def make_train_step(
     ``amp_dtype`` is set), ``objective(corresps, batch) -> (loss, metrics)``
     in float32, backward, gradient statistics, optimizer update. ``forward``
     defaults to ``net(batch["im_A"], batch["im_B"])``. The metrics are
-    tensors on the device: reading one waits for the step."""
+    tensors on the device: reading one waits for the step. Under a process
+    group, ``batch`` is this rank's slice and the collectives of the
+    module's docstring run (at any world size, one rank included)."""
     if forward is None:
         def forward(net, batch):
             return net(batch["im_A"], batch["im_B"])
@@ -107,10 +116,21 @@ def make_train_step(
             corresps = forward(net, batch)
         loss, metrics = objective(corresps, batch)
         loss.backward()
+        if dist.active():
+            # the graph is the same on every rank, so is the list of
+            # gradients; a parameter none reached stays out of the update,
+            # as on one process
+            dist.all_reduce_mean_([p.grad for p in trainable.values() if p.grad is not None])
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p) for k, p in trainable.items()}
         stats = grad_statistics(params, grads)
         optimizer.step()
-        return dict(metrics, **stats, loss=loss.detach())
+        metrics = dict(metrics, loss=loss)
+        if dist.active():
+            dist.all_reduce_mean_(dist.bn_running_stats(net))
+            keys = list(metrics)
+            flat = torch.stack([metrics[k].detach().float() for k in keys])
+            metrics = dict(zip(keys, dist.all_reduce_mean_([flat])[0]))
+        return {**{k: v.detach() for k, v in metrics.items()}, **stats}
 
     step.param_names = list(trainable)
     return step
@@ -128,7 +148,9 @@ def train_k_steps(
     40-64 without the tqdm/wandb coupling). ``ema_decay`` keeps
     ``state.ema_params`` with the warmup-ramped decay; LR warmup is part of
     the optimizer's schedule. ``warn_nonfinite`` reads the finite mask back
-    after each step (one host sync) and prints the offending names."""
+    after each step (one host sync) and prints the offending names. Under a
+    process group each batch is this rank's own (the loader's rank slice, or
+    ``parallel.dist.shard_batch`` of a global batch)."""
     ema_update = None
     if ema_decay is not None:
         if state.ema_params is None:
@@ -165,4 +187,6 @@ def train_k_epochs(state: TrainState, make_loader, train_step, k: int):
 
 
 def init_train_state(net: nn.Module, optimizer: RoMaOptimizer) -> TrainState:
-    return TrainState(net=net, optimizer=optimizer)
+    """The state of a fresh run; under a process group every rank takes rank
+    0's parameters and buffers (the JAX package's ``replicate``)."""
+    return TrainState(net=dist.replicate(net), optimizer=optimizer)

@@ -52,3 +52,13 @@ def imagenet_normalize(x):
     mean = torch.from_numpy(IMAGENET_MEAN).to(x.device)
     std = torch.from_numpy(IMAGENET_STD).to(x.device)
     return (x - mean) / std
+
+
+def to_pil(x: np.ndarray, unnormalize: bool = False) -> Image.Image:
+    """float HWC array (optionally ImageNet-normalized) -> PIL image
+    (roma_tpu/utils/image.py:to_pil; reference tensor_to_pil, utils.py:460-480)."""
+    x = np.asarray(x, np.float32)
+    if unnormalize:
+        x = x * IMAGENET_STD + IMAGENET_MEAN
+    x = np.clip(x, 0.0, 1.0)
+    return Image.fromarray((x * 255).astype(np.uint8))

@@ -118,7 +118,7 @@ def test_pose_errors_summary_equal():
 
 
 def test_package_exports_match_jax():
-    assert set(tb.__all__) == set(jb.__all__) - {"MegadepthDenseBenchmark"}
+    assert set(tb.__all__) == set(jb.__all__)
     assert tb.MEGA_1500_SCENES == jb.MEGA_1500_SCENES and tb.MEGA_8_SCENES == jb.MEGA_8_SCENES
     assert t_hp.IGNORE_SEQS == j_hp.IGNORE_SEQS
     assert (t_hp.PIXEL_OFFSET, t_hp.NORM_SHORT_SIDE) == (j_hp.PIXEL_OFFSET, j_hp.NORM_SHORT_SIDE) == (0.5, 480.0)

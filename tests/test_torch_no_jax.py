@@ -60,6 +60,10 @@ def test_imports_and_matches_with_jax_blocked():
         "from roma_tpu_torch.models import pretrained_backbone\n"
         "import roma_tpu_torch.models.zoo.convert, roma_tpu_torch.models.zoo.download\n"
         "import roma_tpu_torch.train\n"
+        "import roma_tpu_torch.datasets, roma_tpu_torch.parallel, roma_tpu_torch.utils.profiling\n"
+        "import roma_tpu_torch.benchmarks.mega_dense\n"
+        "import roma_tpu_torch.experiments.train_roma_outdoor, roma_tpu_torch.experiments.train_roma_indoor\n"
+        "import roma_tpu_torch.experiments.train_tiny_roma_v1_outdoor\n"
         "import roma_tpu_torch.graveyard.pallas_hcw_refiner, roma_tpu_torch.graveyard.pallas_refiner_lanemajor\n"
         "import roma_tpu_torch.tools.bench_onehot_dots, roma_tpu_torch.tools.bench_hcw_refiner\n"
         "m = roma_outdoor(device=\"cpu\", amp=False, coarse_res=56, upsample_res=64, config=RoMaConfig.tiny())\n"
@@ -106,6 +110,28 @@ def test_evaluation_modules_load_no_jax_cv2_or_tqdm():
                 [node.module or ""] if isinstance(node, ast.ImportFrom) and node.level == 0 else []
             top_level += [f"{f.name}: {n}" for n in names if n.split(".")[0] in ("cv2", "tqdm")]
     assert not top_level, top_level
+
+
+def test_training_modules_load_without_h5py_cv2_or_wandb():
+    """The datasets, the process-group helpers, profiling, the dense
+    benchmark and the entry points import with JAX, the JAX package, h5py,
+    OpenCV, tqdm and wandb all unimportable: h5py is imported by MegaDepth's
+    depth read, tqdm by the benchmark's loop, wandb by the metric logger
+    that asks for it, and ScanNet's depth is read with PIL."""
+    code = (
+        "import sys\n"
+        f"for m in {BANNED + ('h5py', 'cv2', 'tqdm', 'wandb')!r}: sys.modules[m] = None\n"
+        "import roma_tpu_torch.datasets, roma_tpu_torch.parallel, roma_tpu_torch.utils.profiling\n"
+        "import roma_tpu_torch.benchmarks.mega_dense, roma_tpu_torch.experiments.common\n"
+        "from roma_tpu_torch.experiments import train_roma_outdoor, train_roma_indoor, train_tiny_roma_v1_outdoor\n"
+        "train_roma_outdoor.parser().parse_args([])\n"
+        "from roma_tpu_torch.utils.profiling import MetricLogger\n"
+        "MetricLogger(use_wandb=True).log({'loss': 1.0}, step=1)\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=PKG.parent, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
 
 
 def test_no_source_imports_jax():
