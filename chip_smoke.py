@@ -27,6 +27,17 @@
    (bf16 amp, 560 -> 864, symmetric), answers 3 match requests on seeded
    synthetic image pairs, samples 5000 matches from each, and checks shapes,
    finiteness, sample range and that every kernel of the match launched.
+   Then the int8 phase (check_int8): int8_matmul on the card against the
+   same call on the CPU bit for bit at INT8_SHAPES (the ViT's proj, fc1 and
+   fc2 at 2 x 1601 tokens, each refiner width at 4 rows; bf16 and f32),
+   one activation rounded the other way breaking each; roma_outdoor(
+   vit_int8=True, refiner_int8=True) on the same seeded weights, 3 requests:
+   shapes, finiteness, A-D launched and int8_products_per_request (135)
+   int8 products in each; its per-scale flow drift from the bf16 model
+   (p50, p99, coarse anchor flip rate) and tools/int8_drift.py at full dims,
+   printed; its pairs/s, latency and peak memory beside the bf16 model's,
+   and one fc1 through the int8 path, its _int_mm alone and the bf16
+   Linear, timed.
    Then the zoo phase (check_zoo): writes that model's weights as a
    reference-layout .pth pair, builds roma_outdoor and roma_indoor from the
    files, requires every loaded tensor to equal the file's and each match to
@@ -34,6 +45,11 @@
    conf_from_fb_consistency and visualize_warp on the output, and prints
    each load time and peak memory. The script sets ROMA_TPU_OFFLINE=1 and
    an empty ROMA_TPU_CACHE first, so no weights are fetched or read.
+   Then the release phase (check_release): experiments/validate_release.py
+   stages 1-4 on the zoo phase's files at RELEASE_RES (560 -> 864),
+   released widths, stage 3's float32 plain pass on the host's CPU, the
+   coarse classifier pinned by the peaked bias; each stage, the p99, the
+   flipped anchors and the CPU pass's time printed.
    Then the serve phase (check_serving): MatchEngine at batch 4 over 9
    synthetic pairs written as PNG files and a 10th with a corrupt image
    (on_error="skip"): order, the error, the padded last batch, every batch
@@ -1008,25 +1024,6 @@ def check_attention_edges():
             raise SmokeFailure(f"misaligned bf16 view accepted: {what}")
 
 
-def peaked_bias(b, h, w, res, amp=14.0):
-    """A peaked anchor-logit field around a smooth warp, so the coarse argmax
-    has no near-ties (the role of tools/fullres_parity.py:render_peaked_bias)."""
-    import numpy as np
-
-    ys, xs = np.meshgrid(np.linspace(-1 + 1 / h, 1 - 1 / h, h),
-                         np.linspace(-1 + 1 / w, 1 - 1 / w, w), indexing="ij")
-    a = np.linspace(-1 + 1 / res, 1 - 1 / res, res)
-    ay, ax = (g.reshape(-1) for g in np.meshgrid(a, a, indexing="ij"))
-    out = np.empty((b, h, w, res * res), np.float32)
-    sigma = 2.0 / res
-    for i in range(b):
-        wx = np.clip(0.9 * xs + 0.05 * (i + 1), -0.98, 0.98)
-        wy = np.clip(0.9 * ys - 0.04 * (i + 1), -0.98, 0.98)
-        d2 = (wx[..., None] - ax) ** 2 + (wy[..., None] - ay) ** 2
-        out[i] = amp * np.exp(-d2 / (2 * sigma * sigma))
-    return out
-
-
 def small_config():
     """RoMaConfig.tiny() with head dims of 64, which Kernels A and E take."""
     from roma_tpu_torch.models import RoMaConfig
@@ -1041,17 +1038,17 @@ def small_config():
     )
 
 
-def check_zoo(model, pair, warp, cert):
+def check_zoo(model, pair, warp, cert, d: str) -> tuple[str, str]:
     """The zoo phase: the released models' entry points from local files.
     Writes ``model``'s weights as a reference-layout pair (the roma state
-    dict and the DINOv2 one, float32, as the released .pth files) to a
-    temporary directory, builds roma_outdoor and roma_indoor from those
+    dict and the DINOv2 one, float32, as the released .pth files) to the
+    directory ``d``, builds roma_outdoor and roma_indoor from those
     paths on the card, requires every loaded tensor to equal the file's and
     the 560 -> 864 match of ``pair`` to equal ``warp`` and ``cert`` (the
     seeded model's) to the bf16 bar, then runs match_keypoints,
     conf_from_fb_consistency and visualize_warp on roma_outdoor's output.
     Prints each model's load time and the peak device memory of its load and
-    match with the card's line."""
+    match with the card's line. Returns the pair's paths."""
     import torch
 
     from roma_tpu_torch.models import roma_indoor, roma_outdoor
@@ -1059,35 +1056,35 @@ def check_zoo(model, pair, warp, cert):
 
     roma_sd, dino_sd = convert.to_reference(model.net)
     files = {**roma_sd, **{convert.DINO_PREFIX + k: v for k, v in dino_sd.items()}}
-    with tempfile.TemporaryDirectory() as d:
-        paths = os.path.join(d, "roma_outdoor.pth"), os.path.join(d, "dinov2_vitl14_pretrain.pth")
+    paths = os.path.join(d, "roma_outdoor.pth"), os.path.join(d, "dinov2_vitl14_pretrain.pth")
+    t0 = time.perf_counter()
+    torch.save(roma_sd, paths[0])
+    torch.save(dino_sd, paths[1])
+    print(f"zoo: reference-layout pair of {len(roma_sd)} + {len(dino_sd)} float32 tensors "
+          f"({sum(map(os.path.getsize, paths))} bytes) written in {time.perf_counter() - t0:.2f} s", flush=True)
+    del roma_sd, dino_sd
+    for name, build in (("roma_outdoor", roma_outdoor), ("roma_indoor", roma_indoor)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        torch.save(roma_sd, paths[0])
-        torch.save(dino_sd, paths[1])
-        print(f"zoo: reference-layout pair of {len(roma_sd)} + {len(dino_sd)} float32 tensors "
-              f"({sum(map(os.path.getsize, paths))} bytes) written in {time.perf_counter() - t0:.2f} s", flush=True)
-        del roma_sd, dino_sd
-        for name, build in (("roma_outdoor", roma_outdoor), ("roma_indoor", roma_indoor)):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            m = build(*paths, device="cuda")
-            torch.cuda.synchronize()
-            load_s = time.perf_counter() - t0
-            loaded = m.net.state_dict()
-            for k, v in files.items():
-                require(torch.equal(loaded[k].float(), v.to("cuda")), f"zoo {name}: {k} is not the file's")
-            got_warp, got_cert = m.match(*pair)
-            check_output(name, "560->864 vs the seeded model", torch.bfloat16, got_warp, warp, "warp ")
-            check_output(name, "560->864 vs the seeded model", torch.bfloat16, got_cert, cert, "certainty ")
-            if name == "roma_outdoor":
-                check_match_api(m, pair, got_warp, got_cert, d)
-            torch.cuda.synchronize()
-            print(f"zoo {name}: built from the files in {load_s:.2f} s, {len(files)} tensors equal to the files'; "
-                  f"peak device memory of the load and match {torch.cuda.max_memory_allocated()} bytes; card "
-                  f"{smi_line()}", flush=True)
-            del m, loaded
-            torch.cuda.empty_cache()
+        m = build(*paths, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        loaded = m.net.state_dict()
+        for k, v in files.items():
+            require(torch.equal(loaded[k].float(), v.to("cuda")), f"zoo {name}: {k} is not the file's")
+        got_warp, got_cert = m.match(*pair)
+        check_output(name, "560->864 vs the seeded model", torch.bfloat16, got_warp, warp, "warp ")
+        check_output(name, "560->864 vs the seeded model", torch.bfloat16, got_cert, cert, "certainty ")
+        if name == "roma_outdoor":
+            check_match_api(m, pair, got_warp, got_cert, d)
+        torch.cuda.synchronize()
+        print(f"zoo {name}: built from the files in {load_s:.2f} s, {len(files)} tensors equal to the files'; "
+              f"peak device memory of the load and match {torch.cuda.max_memory_allocated()} bytes; card "
+              f"{smi_line()}", flush=True)
+        del m, loaded
+        torch.cuda.empty_cache()
+    return paths
 
 
 def check_match_api(m, pair, warp, cert, out_dir):
@@ -1139,6 +1136,7 @@ def check_serving(model, batch1_pairs_per_s: float):
     import numpy as np
     import torch
 
+    from roma_tpu_torch.experiments.validate_release import peaked_bias
     from roma_tpu_torch.serving import WORKERS, MatchEngine
     from roma_tpu_torch.utils.image import load_image
 
@@ -1397,6 +1395,229 @@ def check_eval():
     print(f"eval phase: {time.perf_counter() - t_phase:.2f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the int8 serving path (vit_int8, refiner_int8) and the release gate
+# ---------------------------------------------------------------------------
+
+# int8_matmul at the released shapes: the ViT's proj, fc1 and fc2 over both
+# images of the symmetric coarse pass (2 x 1601 tokens at 560^2), and each
+# refiner width at a 4-row batch (under the 17 rows _int_mm takes on the card)
+INT8_SHAPES = (("ViT proj, 2 x 1601 tokens", 3202, 1024, 1024), ("ViT fc1, 2 x 1601 tokens", 3202, 1024, 4096),
+               ("ViT fc2, 2 x 1601 tokens", 3202, 4096, 1024), ("refiner C1377, 4 rows", 4, 1377, 1377),
+               ("refiner C1137, 4 rows", 4, 1137, 1137), ("refiner C569, 4 rows", 4, 569, 569),
+               ("refiner C144, 4 rows", 4, 144, 144))
+INT8_REQUESTS = 3
+# the release phase's resolution: stage 3's float32 plain pass runs on the
+# host's CPU (39.3 s at 560 -> 864 on the H100 machine's 8 cores), which must
+# stay within about 90 s to keep the script well inside its time limit
+RELEASE_RES = (560, 864)
+
+
+def int8_products_per_request(cfg, max_c: int = 32) -> int:
+    """The int8 products of one symmetric two-pass request (both images in
+    one batch): proj, fc1 and fc2 of each ViT block in the coarse pass, and
+    the 1x1 of block1 and of each hidden block of every refiner stack wider
+    than Kernel D's MAX_C (narrower ones run folded on D), at scales 16-2 of
+    the coarse pass and 8-2 of the upsample pass."""
+    wide = [s for s, spec in cfg.refiner_specs().items() if spec.hidden_dim > max_c]
+    stacks = len(wide) + len([s for s in wide if s != 16])
+    return 3 * cfg.dino_depth * cfg.vit_int8 + (1 + cfg.hidden_blocks) * stacks * cfg.refiner_int8
+
+
+def int8_operands(gen, m, k, n, dt):
+    """Rows of different scales, a (K, N) weight of unit-scale outputs, a bias."""
+    import torch
+
+    x = torch.randn(m, k, generator=gen) * (0.1 + 3 * torch.rand(m, 1, generator=gen))
+    return x.to(dt), torch.randn(k, n, generator=gen) / math.sqrt(k), 0.1 * torch.randn(n, generator=gen)
+
+
+def int8_one_rounded_the_other_way(x, w_kn, b):
+    """int8_matmul's formula with one int8 activation rounded the other way
+    (row 0's value nearest a rounding tie): the planted fault that the
+    bitwise check must catch."""
+    import torch
+
+    from roma_tpu_torch.ops.int8 import quantize, quantize_weight
+
+    xf = x.float()
+    xq, sx = quantize(xf, dim=1)
+    r = xf[0] / sx[0]
+    j = int((r - r.floor() - 0.5).abs().argmin())
+    xq[0, j] += 1 if xq[0, j] < r[j] else -1
+    wq, sk = quantize_weight(w_kn.t())
+    return ((torch._int_mm(xq, wq.t()).float() * sx * sk) + b.float()).to(x.dtype)
+
+
+def check_int8_products():
+    """int8_matmul on the card against the same call on the CPU, bit for bit,
+    at INT8_SHAPES in bfloat16 and float32 (the card pads K, N and the rows
+    for _int_mm; the CPU does not), and the planted fault must differ from
+    the card's result."""
+    import torch
+
+    from roma_tpu_torch.ops.int8 import int8_matmul, int8_product
+
+    gen = torch.Generator().manual_seed(0)
+    int8_product.launches = 0
+    for label, m, k, n in INT8_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            x, w, b = int8_operands(gen, m, k, n, dt)
+            cpu = int8_matmul(x, w, b)
+            card = int8_matmul(x.cuda(), w.cuda(), b.cuda()).cpu()
+            require(card.dtype == dt and torch.equal(card, cpu),
+                    f"int8_matmul {label} {dt}: the card's result is not the CPU's bit for bit "
+                    f"(max diff {(card.float() - cpu.float()).abs().max().item():.3e})")
+            require(not torch.equal(card, int8_one_rounded_the_other_way(x, w, b)),
+                    f"int8_matmul {label} {dt}: the planted fault does not break the bitwise check")
+            print(f"int8_matmul {label:28s} ({m}, {k}, {n}) {str(dt)[6:]:8s} card == cpu bit for bit; "
+                  f"one value rounded the other way breaks it", flush=True)
+    require(int8_product.launches == 2 * len(INT8_SHAPES), f"int8 products launched {int8_product.launches}")
+
+
+def write_pair_pngs(pair, d: str) -> tuple[str, str]:
+    paths = os.path.join(d, "pair_A.png"), os.path.join(d, "pair_B.png")
+    for im, path in zip(pair, paths):
+        im.save(path)
+    return paths
+
+
+def flow_drift(ref: dict, got: dict, res: dict) -> dict:
+    """Per-scale flow drift of ``got`` from ``ref`` (validate_release.two_pass
+    outputs) in px of each pass: p50, p99 and the coarse anchor flip rate."""
+    import numpy as np
+
+    from roma_tpu_torch.experiments.validate_release import anchor_flips
+
+    out = {}
+    for p in ref:
+        for s in ref[p]:
+            d = np.abs(got[p][s] - ref[p][s]) * res[p] / 2
+            out[f"{p}_s{s}"] = {"p50_px": float(np.percentile(d, 50)), "p99_px": float(np.percentile(d, 99)),
+                                "anchor_flip_rate": float(anchor_flips(got[p][s], ref[p][s], res[p]).mean())}
+    return out
+
+
+def check_int8(bf16_model, pairs, bf16_stats: dict, d: str):
+    """The int8 phase. (a) check_int8_products. (b) roma_outdoor(vit_int8=True,
+    refiner_int8=True) at released widths on the seeded weights of
+    ``bf16_model``, bf16 amp, 560 -> 864, symmetric: INT8_REQUESTS requests
+    of match + sample(5000) + to_pixel_coordinates on ``pairs``: shapes,
+    finite values, Kernels A-D launched and int8_products_per_request
+    products in each request. (c) Drift from the bf16 model on the same
+    weights and inputs: per-scale flow p50 / p99 px and the coarse anchor
+    flip rate, and the int8_drift tool at full dims (printed, not gated).
+    (d) Pairs/s, latency and peak memory beside the bf16 model's
+    (``bf16_stats``), and one fc1 (2 x 1601 tokens) through QLinear's int8
+    path, its _int_mm product alone and the bf16 nn.Linear it replaces."""
+    import torch
+
+    from roma_tpu_torch.experiments.validate_release import load_pair_images, two_pass
+    from roma_tpu_torch.models.vit import QLinear
+    from roma_tpu_torch.models.zoo import roma_outdoor
+    from roma_tpu_torch.ops.int8 import int8_product, padded_int_mm, quantize
+    from roma_tpu_torch.tools import int8_drift
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    check_int8_products()
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m8 = roma_outdoor(device="cuda", seed=0, vit_int8=True, refiner_int8=True)
+    expected = int8_products_per_request(m8.net.config)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    latencies = []
+    for im_a, im_b in pairs[:INT8_REQUESTS]:
+        zero_counts()
+        int8_product.launches = 0
+        t0 = time.perf_counter()
+        warp, cert = m8.match(im_a, im_b)
+        matches, _ = m8.sample(warp, cert, num=5000, generator=gen)
+        kpts_a, kpts_b = m8.to_pixel_coordinates(matches, im_a.height, im_a.width, im_b.height, im_b.width)
+        torch.cuda.synchronize()
+        latencies.append(time.perf_counter() - t0)
+        launches = read_counts()
+        require(tuple(warp.shape) == (864, 1728, 4) and tuple(cert.shape) == (864, 1728), "int8: output shapes")
+        require(bool(torch.isfinite(warp).all() and torch.isfinite(cert).all()
+                     and torch.isfinite(kpts_a).all() and torch.isfinite(kpts_b).all()), "int8: non-finite output")
+        require(tuple(matches.shape) == (5000, 4) and matches.abs().max().item() <= 1.0, "int8: samples")
+        missing = [n for n in MATCH_KERNELS if launches[n] == 0]
+        require(not missing, f"int8 request: kernels not launched {missing}")
+        require(int8_product.launches == expected,
+                f"int8 request: {int8_product.launches} int8 products, expected {expected}")
+    peak = torch.cuda.max_memory_allocated()
+    pairs_per_s = (len(latencies) - 1) / sum(latencies[1:])
+    print(f"int8 requests: {expected} int8 products in each, as int8_products_per_request counts them; "
+          f"A-D launched {dict((n, launches[n]) for n in MATCH_KERNELS)} in the last; card {card}")
+    print(f"int8 request latency s: {' '.join(f'{t:.4f}' for t in latencies)}; pairs/s after the first "
+          f"{pairs_per_s:.4f} (bf16 model {bf16_stats['pairs_per_s']:.4f}); peak device memory {peak} bytes "
+          f"(bf16 model {bf16_stats['peak']}); card {card}", flush=True)
+
+    paths = write_pair_pngs(pairs[0], d)
+    ims, _ = load_pair_images(560, 864, *paths)
+    res = {"coarse": 560, "up": 864}
+    drift = flow_drift(two_pass(bf16_model.net, ims, 560, 864, None), two_pass(m8.net, ims, 560, 864, None), res)
+    for k, v in drift.items():
+        print(f"int8 drift from the bf16 model {k:10s} p50 {v['p50_px']:.4f} px  p99 {v['p99_px']:.4f} px  "
+              f"anchor flips {v['anchor_flip_rate']:.5f}")
+    print(f"int8 drift: coarse anchor flip rate {drift['coarse_s16']['anchor_flip_rate']:.5f}; card {card}",
+          flush=True)
+    del m8, warp, cert
+    torch.cuda.empty_cache()
+    report = int8_drift.main(["--device", "cuda"])
+    print(f"int8_drift (full dims, float32): {json.dumps(report)}; card {card}", flush=True)
+
+    fc1 = bf16_model.net.encoder.dinov2.blocks[0].mlp.fc1
+    x = torch.randn(2, 1601, 1024, device="cuda", dtype=torch.bfloat16)
+    q = QLinear(1024, 4096, int8=True).cuda()
+    with torch.no_grad():
+        q.weight.copy_(fc1.weight.float())
+        q.bias.copy_(fc1.bias.float())
+    xq, _ = quantize(x.reshape(-1, 1024).float(), dim=1)
+    wq, _ = q._quantized(q.weight)
+    with torch.inference_mode():
+        t_int8 = cuda_ms(lambda: q(x))
+        t_mm = cuda_ms(lambda: padded_int_mm(xq, wq))
+        t_bf16 = cuda_ms(lambda: fc1(x))
+    print(f"fc1 (3202 x 1024 -> 4096): QLinear int8 {t_int8:.4f} ms (its _int_mm alone {t_mm:.4f} ms), "
+          f"bf16 nn.Linear {t_bf16:.4f} ms; card {card}")
+    print(f"int8 phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def check_release(paths, pair, d: str):
+    """The release phase: validate_release stages 1-4 on the zoo phase's
+    reference-layout pair at RELEASE_RES and released widths, stage 3's
+    kernel path on the card against the plain path on the host's CPU, on
+    ``pair`` written as PNGs; the coarse classifier pinned by the peaked
+    bias (--gm_bias peaked), since the seeded weights have no margins.
+    Prints each stage, the flipped anchors beside the p99, the CPU pass's
+    time and the phase's."""
+    from roma_tpu_torch.experiments import validate_release
+
+    t_phase = time.perf_counter()
+    im_a, im_b = write_pair_pngs(pair, d)
+    res, up = RELEASE_RES
+    args = validate_release.parser().parse_args(
+        ["--weights", paths[0], "--dinov2_weights", paths[1], "--res", str(res), "--up", str(up),
+         "--im_A", im_a, "--im_B", im_b, "--gm_bias", "peaked", "--device", "cuda",
+         "--out", os.path.join(d, "VALIDATE_RELEASE_TORCH.json")])
+    try:
+        report = validate_release.run(args)
+    except validate_release.GateFailure as e:
+        raise SmokeFailure(f"release gate: {e}") from e
+    for stage in ("convert", "strict_load", "f32_parity", "bf16_drift"):
+        require(report[stage]["ok"] is True, f"release gate: stage {stage} did not pass")
+    par = report["f32_parity"]
+    print(f"release gate at {res} -> {up}: stages 1-4 ok; f32 card vs cpu worst p99 {par['worst_p99_px']:.6f} px "
+          f"(bar {validate_release.P99_PX}), worst max {par['worst_max_px']:.4f} px, {par['coarse_anchor_flips']} "
+          f"of {par['coarse_cells']} coarse anchors flipped; cpu pass {par['cpu_seconds']:.1f} s, card pass "
+          f"{par['device_seconds']:.1f} s; bf16 coarse anchor flip rate "
+          f"{report['bf16_drift']['coarse_anchor_flip_rate']}; card {smi_line()}")
+    print(f"release phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def check_small_match():
     """The whole match on a small configuration: kernels on the card against
     the plain versions on the CPU, one set of weights, float32; with the
@@ -1405,6 +1626,7 @@ def check_small_match():
 
     import numpy as np
 
+    from roma_tpu_torch.experiments.validate_release import peaked_bias
     from roma_tpu_torch.models import RegressionMatcher
     from roma_tpu_torch.models.zoo import build_net, init_random
 
@@ -1574,6 +1796,7 @@ def check_small_train():
 
     import torch
 
+    from roma_tpu_torch.experiments.validate_release import peaked_bias
     from roma_tpu_torch.models.zoo import build_net, init_random
     from roma_tpu_torch.train import RobustLosses, make_optimizer, make_train_step
 
@@ -3228,7 +3451,12 @@ def main(argv=None) -> int:
     require(not missing, f"kernels not launched on the main path: {missing}")
     if args.profile:
         traced("match request", lambda: request(*pairs[-1]))
-    check_zoo(model, pairs[-1], warp, cert)
+    with tempfile.TemporaryDirectory() as d:
+        check_int8(model, pairs, {"pairs_per_s": pairs_per_s, "peak": peak}, d)
+        torch.cuda.empty_cache()
+        paths = check_zoo(model, pairs[-1], warp, cert, d)
+        check_release(paths, pairs[0], d)
+    torch.cuda.empty_cache()
     check_serving(model, pairs_per_s)
     del model, warp, cert, matches
     torch.cuda.empty_cache()

@@ -1,3 +1,6 @@
-"""The training entry points (counterpart of experiments/train_*.py), run as
-``python -m roma_tpu_torch.experiments.<name>``; each module's ``build``
-returns the recipe's objects for a test or a smoke run to drive."""
+"""The entry points (counterpart of experiments/), run as
+``python -m roma_tpu_torch.experiments.<name>``: the training recipes
+(``train_*``; each module's ``build`` returns the recipe's objects for a
+test or a smoke run to drive), the evaluations (``eval_*``: ``build(args,
+config=None)`` the matcher, ``run(args, model=None)`` the benchmark and its
+JSON) and the release gate (``validate_release``)."""

@@ -17,6 +17,8 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.int8 import QuantizedWeight, int8_matmul_quantized
+
 
 def nhwc(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Apply an NCHW module to an NHWC tensor, returning NHWC."""
@@ -50,14 +52,38 @@ def checkpointed(module: nn.Module, *args, **kwargs):
                       context_fn=lambda: (contextlib.nullcontext(), frozen_bn_stats(module)), **kwargs)
 
 
-def refiner_block(in_dim: int, out_dim: int, kernel: int = 5) -> nn.Sequential:
+class QConv1x1(nn.Conv2d):
+    """``nn.Conv2d(c_in, c_out, 1)`` computed through dynamic int8 outside
+    training (ops/int8.py; the JAX package's QConv1x1): each pixel's
+    channels are a row, quantized with its own scale, against the (c_out,
+    c_in) weight. Its parameters are the conv's (weight (c_out, c_in, 1, 1),
+    bias), float32 under amp (zoo.set_precision); in training it is the
+    float conv, as the JAX package's RefinerBlock takes it (round() has no
+    gradient). The int8 weight is cached until the weight changes."""
+
+    def __init__(self, c_in: int, c_out: int):
+        super().__init__(c_in, c_out, 1)
+        self._quantized = QuantizedWeight()
+
+    def forward(self, x):
+        """NCHW in, NCHW out; an NCHW view of NHWC memory (``nhwc``) is
+        read and written without a copy."""
+        if self.training:
+            return super().forward(x)
+        w = self.weight.view(self.out_channels, self.in_channels)
+        out = int8_matmul_quantized(x.permute(0, 2, 3, 1), *self._quantized(w), self.bias, out_dtype=x.dtype)
+        return out.permute(0, 3, 1, 2)
+
+
+def refiner_block(in_dim: int, out_dim: int, kernel: int = 5, int8: bool = False) -> nn.Sequential:
     """create_block of reference matcher.py:92-122: depthwise KxK conv, BN,
-    ReLU, 1x1 conv. Indices 0/1/3 match the released checkpoint's keys."""
+    ReLU, 1x1 conv (:class:`QConv1x1` with ``int8``). Indices 0/1/3 match
+    the released checkpoint's keys."""
     return nn.Sequential(
         nn.Conv2d(in_dim, out_dim, kernel, padding=kernel // 2, groups=in_dim),
         nn.BatchNorm2d(out_dim, eps=1e-5, momentum=0.01),
         nn.ReLU(),
-        nn.Conv2d(out_dim, out_dim, 1),
+        QConv1x1(out_dim, out_dim) if int8 else nn.Conv2d(out_dim, out_dim, 1),
     )
 
 

@@ -44,14 +44,14 @@ class RoMaConfig:
     dino_depth: int = 24
     dino_heads: int = 16
     dino_patch: int = 14
-    # serving-only: run the frozen DINOv2's Dense layers in dynamic int8
-    # (the JAX package's ops/int8.py; not ported yet). Changes numerics;
-    # validate golden metrics before enabling in production.
+    # serving-only: run the frozen DINOv2's proj, fc1 and fc2 in dynamic
+    # int8 (ops/int8.py, the JAX package's formula; qkv stays float).
+    # Changes numerics; validate golden metrics before enabling in production.
     vit_int8: bool = False
-    # serving-only: the refiners' hidden 1x1 convs in dynamic int8 (the
-    # wide-C stacks, C up to 1377, are mostly matmul). Inference only,
-    # ignored in train mode (round() has zero gradient). Not ported yet;
-    # same validation caveat.
+    # serving-only: the refiners' 1x1 convs in dynamic int8 on the wide
+    # stacks (scales 16-2, C 144-1377); the scale-1 stack stays on Kernel D,
+    # as the JAX package's fused path ignores it. Inference only, ignored in
+    # train mode (round() has zero gradient); same validation caveat.
     refiner_int8: bool = False
     # serving-only: tanh-approximate GELU in the frozen DINOv2 MLPs instead
     # of the exact erf form of torch's nn.GELU default (reference

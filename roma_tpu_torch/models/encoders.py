@@ -75,7 +75,7 @@ class CNNandDinov2(nn.Module):
         self.cnn = VGG19(config.vgg_channels)
         self.dinov2 = DinoV2(
             embed_dim=config.dino_dim, depth=config.dino_depth, num_heads=config.dino_heads,
-            patch_size=config.dino_patch, gelu_tanh=config.vit_gelu_tanh,
+            patch_size=config.dino_patch, gelu_tanh=config.vit_gelu_tanh, int8=config.vit_int8,
         ).requires_grad_(False)
 
     def forward(self, x: torch.Tensor, upsample: bool = False) -> dict[int, torch.Tensor]:

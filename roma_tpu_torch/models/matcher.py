@@ -10,7 +10,10 @@ roma_tpu/models/matcher.py), NHWC at every public boundary.
     at most 32 wide, PyTorch's convs otherwise), float32 out_conv. In
     training mode the three kernels give way to their plain versions, as
     the JAX package's ``inference=not self.train`` does: they are
-    forward-only.
+    forward-only. ``refiner_int8`` puts the blocks' 1x1 convs of the wider
+    stacks (scales 16-2) on dynamic int8 outside training
+    (:class:`~.blocks.QConv1x1`); the scale-1 stack stays on Kernel D, as
+    the JAX package's fused path ignores ``int8``.
   * ``Decoder``: the scale loop, 16 -> 1, or 8 -> 1 in the upsample pass; in
     training mode it also returns the anchor logits ``gm_cls``, their
     certainty ``gm_certainty``, ``flow_pre_delta`` and ``delta_flow``, which
@@ -122,16 +125,19 @@ class TransformerDecoder(nn.Module):
 
 
 class ConvRefiner(nn.Module):
-    """Per-scale refinement CNN (reference matcher.py:23-179)."""
+    """Per-scale refinement CNN (reference matcher.py:23-179). ``int8``: the
+    blocks' 1x1 convs in dynamic int8 outside training, on a stack wider
+    than Kernel D's MAX_C (a narrower one runs folded on D in inference)."""
 
-    def __init__(self, spec: RefinerSpec, remat: bool = False):
+    def __init__(self, spec: RefinerSpec, remat: bool = False, int8: bool = False):
         super().__init__()
         self.spec = spec
         self.remat = remat
         k = spec.kernel_size
-        self.block1 = refiner_block(spec.in_dim, spec.hidden_dim, k)
+        int8 = int8 and spec.hidden_dim > MAX_C
+        self.block1 = refiner_block(spec.in_dim, spec.hidden_dim, k, int8)
         self.hidden_blocks = nn.ModuleList(
-            refiner_block(spec.hidden_dim, spec.hidden_dim, k) for _ in range(spec.hidden_blocks)
+            refiner_block(spec.hidden_dim, spec.hidden_dim, k, int8) for _ in range(spec.hidden_blocks)
         )
         self.out_conv = nn.Conv2d(spec.hidden_dim, 3, 1)
         self.disp_emb = nn.Conv2d(2, spec.disp_emb_dim, 1)
@@ -208,7 +214,7 @@ class Decoder(nn.Module):
             for s, (cin, cout) in config.proj_specs().items()
         })
         self.conv_refiner = nn.ModuleDict({
-            str(s): ConvRefiner(spec, remat) for s, spec in config.refiner_specs().items()
+            str(s): ConvRefiner(spec, remat, config.refiner_int8) for s, spec in config.refiner_specs().items()
         })
 
     def _call(self, module: nn.Module, *args, **kwargs):

@@ -5,7 +5,9 @@ Module and parameter names follow the released DINOv2 checkpoint
 (``patch_embed.proj``, ``blocks.{i}.attn.qkv``, ``ls1.gamma``, ...), so its
 state dict loads as is. The JAX package's scan-stacked blocks are an
 ``nn.ModuleList`` here, and its lane padding of the token count is not
-needed: Kernel A masks ragged tiles itself.
+needed: Kernel A masks ragged tiles itself. ``int8`` (the ``vit_int8``
+serving knob) runs proj, fc1 and fc2 through :class:`QLinear`; qkv stays
+float, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -15,26 +17,46 @@ import torch
 import torch.nn as nn
 
 from ..ops import fused_attention_packed, interpolate
+from ..ops.int8 import QuantizedWeight, int8_matmul_quantized
+
+
+class QLinear(nn.Linear):
+    """``nn.Linear`` computed through dynamic int8 when ``int8`` is set
+    (ops/int8.py; the JAX package's QDense). Its parameters are
+    nn.Linear's (weight (N, K), bias), so checkpoints and converters do not
+    see which one built a model; they stay float32 under amp
+    (zoo.set_precision), since the int8 weight is quantized from the float32
+    one. The int8 weight is cached until the weight changes."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, int8: bool = False):
+        super().__init__(in_features, out_features, bias=bias)
+        self.int8 = int8
+        self._quantized = QuantizedWeight()
+
+    def forward(self, x):
+        if not self.int8:
+            return super().forward(x)
+        return int8_matmul_quantized(x, *self._quantized(self.weight), self.bias, out_dtype=x.dtype)
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int, gelu_tanh: bool = False):
+    def __init__(self, dim: int, hidden: int, gelu_tanh: bool = False, int8: bool = False):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
+        self.fc1 = QLinear(dim, hidden, int8=int8)
         # torch nn.GELU default is exact erf; tanh is the amp serving knob
         self.act = nn.GELU(approximate="tanh" if gelu_tanh else "none")
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc2 = QLinear(hidden, dim, int8=int8)
 
     def forward(self, x):
         return self.fc2(self.act(self.fc1(x)))
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, int8: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim)
+        self.proj = QLinear(dim, dim, int8=int8)
 
     def forward(self, x):
         return self.proj(fused_attention_packed(self.qkv(x), self.num_heads))
@@ -53,13 +75,13 @@ class Block(nn.Module):
     """Pre-norm ViT block, eval path (reference layers/block.py)."""
 
     def __init__(self, dim: int, num_heads: int, layer_scale: bool, qkv_bias: bool = True,
-                 gelu_tanh: bool = False):
+                 gelu_tanh: bool = False, int8: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias)
+        self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias, int8=int8)
         self.ls1 = LayerScale(dim) if layer_scale else nn.Identity()
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, 4 * dim, gelu_tanh=gelu_tanh)
+        self.mlp = Mlp(dim, 4 * dim, gelu_tanh=gelu_tanh, int8=int8)
         self.ls2 = LayerScale(dim) if layer_scale else nn.Identity()
 
     def forward(self, x):
@@ -77,7 +99,7 @@ class DinoV2(nn.Module):
     """DINOv2 forward_features: normalized patch tokens as an NHWC map."""
 
     def __init__(self, embed_dim=1024, depth=24, num_heads=16, patch_size=14,
-                 pretrain_img_size=518, gelu_tanh=False):
+                 pretrain_img_size=518, gelu_tanh=False, int8=False):
         super().__init__()
         self.patch_size = patch_size
         n = (pretrain_img_size // patch_size) ** 2
@@ -85,7 +107,7 @@ class DinoV2(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, n + 1, embed_dim))
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, layer_scale=True, gelu_tanh=gelu_tanh)
+            Block(embed_dim, num_heads, layer_scale=True, gelu_tanh=gelu_tanh, int8=int8)
             for _ in range(depth)
         )
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)

@@ -18,7 +18,9 @@ constructor here: a caller who wants the CPU passes ``device="cpu"``, and
 on a machine without a card the default raises instead of building on the
 CPU. ``amp=True`` runs in bfloat16 with the JAX package's float32 islands:
 the GP (kernel matrices, Cholesky, triangular solves) and every refiner's
-out_conv.
+out_conv; and the weights of the int8 layers (``vit_int8``,
+``refiner_int8``), which are quantized from their float32 values, as the
+JAX package quantizes from its float32 parameters.
 
 ``train_net`` builds the network for training
 (experiments/train_roma_outdoor.py:64-71): float32 master parameters, bf16
@@ -36,8 +38,9 @@ import torch.nn as nn
 from ..config import RoMaConfig
 from ..matcher import RoMaNet
 from ..roma import RegressionMatcher
+from ..blocks import QConv1x1
 from ..tiny import TinyRoMa, TinyRoMaNet
-from ..vit import LayerScale
+from ..vit import LayerScale, QLinear
 from . import convert, download
 
 # the architecture of the released checkpoints: only there does a
@@ -98,12 +101,22 @@ def init_random(net: nn.Module, seed: int, std: float = INIT_STD) -> nn.Module:
 
 
 def set_precision(net: RoMaNet, dtype: torch.dtype) -> RoMaNet:
-    """Cast to the compute dtype, keeping the float32 islands."""
+    """Cast to the compute dtype, keeping the float32 islands and the int8
+    layers' float32 weights."""
     net.to(dtype)
     net.decoder.gps.float()
     for refiner in net.decoder.conv_refiner.values():
         refiner.out_conv.float()
+    for m in net.modules():
+        if isinstance(m, QConv1x1) or (isinstance(m, QLinear) and m.int8):
+            m.float()
     return net
+
+
+def serving_knobs_off(config: RoMaConfig) -> RoMaConfig:
+    """The architecture under the serving knobs (the JAX package's ``arch``):
+    int8 and the GELU change no parameter, so released weights apply."""
+    return dataclasses.replace(config, vit_int8=False, refiner_int8=False, vit_gelu_tanh=False)
 
 
 def build_net(config: RoMaConfig, device="cuda", remat: bool = False) -> RoMaNet:
@@ -168,19 +181,20 @@ def _roma_model(
     ``variant`` ("outdoor" / "indoor") names the released checkpoint to
     fetch when no weights are passed. Under ``amp`` the DINOv2 MLPs use the
     tanh GELU, as the JAX package's ``vit_gelu_tanh`` default does;
-    ``vit_gelu_tanh=False`` keeps the exact erf even under amp."""
+    ``vit_gelu_tanh=False`` keeps the exact erf even under amp.
+    ``vit_int8`` / ``refiner_int8`` (or the config's) turn on the dynamic
+    int8 serving paths (ops/int8.py) on the same weights."""
     config = config or RoMaConfig()
-    if vit_int8 or refiner_int8 or config.vit_int8 or config.refiner_int8:
-        raise NotImplementedError("roma_tpu_torch: the int8 serving paths (vit_int8, refiner_int8) are not ported")
     if isinstance(coarse_res, int):
         coarse_res = (coarse_res, coarse_res)
     if isinstance(upsample_res, int):
         upsample_res = (upsample_res, upsample_res)
     if vit_gelu_tanh is None:
         vit_gelu_tanh = amp
-    config = dataclasses.replace(config, vit_gelu_tanh=vit_gelu_tanh or config.vit_gelu_tanh)
-    # the GELU is a serving knob, not the architecture: released weights apply
-    if variant is not None and dataclasses.replace(config, vit_gelu_tanh=False) == RELEASED:
+    config = dataclasses.replace(config, vit_gelu_tanh=vit_gelu_tanh or config.vit_gelu_tanh,
+                                 vit_int8=vit_int8 or config.vit_int8,
+                                 refiner_int8=refiner_int8 or config.refiner_int8)
+    if variant is not None and serving_knobs_off(config) == RELEASED:
         if weights is None:
             weights = _fetch_state_dict(WEIGHT_URLS["romatch"][variant])
         if weights is not None and dinov2_weights is None:

@@ -1,7 +1,9 @@
 """The port stands alone: it imports no JAX, Flax, Optax, Orbax, roma_tpu,
 graveyard or tools (the training package, the port's graveyard and tools,
-its model zoo's loader and download modules and Tiny RoMa's modules
-included), its entry points build on the card unless asked for the CPU, and
+its model zoo's loader and download modules, Tiny RoMa's modules, the int8
+path, the eval, release-gate and demo entry points included) and reads no
+file of the reference checkout, its entry points build on the card unless
+asked for the CPU, and
 on CPU tensors every kernel wrapper runs its plain version without
 launching."""
 import ast
@@ -98,13 +100,21 @@ def test_evaluation_modules_load_no_jax_cv2_or_tqdm():
         "import roma_tpu_torch.serving, roma_tpu_torch.benchmarks, roma_tpu_torch.native\n"
         "import roma_tpu_torch.tools.crossimpl\n"
         "from roma_tpu_torch.benchmarks import pose, pose_bench, mega1500, mega1500_native, scannet, hpatches\n"
+        "import roma_tpu_torch.ops.int8, roma_tpu_torch.tools.int8_drift\n"
+        "from roma_tpu_torch.experiments import eval_roma_outdoor, eval_roma_indoor, eval_hpatches\n"
+        "from roma_tpu_torch.experiments import eval_tiny_roma_v1_outdoor, validate_release\n"
+        "from roma_tpu_torch.demo import demo_match, demo_match_tiny, demo_fundamental, demo_3D_effect\n"
+        "for m in (eval_roma_outdoor, eval_roma_indoor, eval_hpatches, eval_tiny_roma_v1_outdoor, validate_release,\n"
+        "          demo_match, demo_match_tiny, demo_fundamental, demo_3D_effect):\n"
+        "    m.parser()\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=PKG.parent, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
     top_level = []
-    for f in [PKG / "serving.py", PKG / "native.py", PKG / "tools" / "crossimpl.py", *(PKG / "benchmarks").glob("*.py")]:
+    for f in [PKG / "serving.py", PKG / "native.py", PKG / "tools" / "crossimpl.py", *(PKG / "benchmarks").glob("*.py"),
+              *(PKG / "demo").glob("*.py"), *(PKG / "experiments").glob("eval_*.py")]:
         for node in ast.parse(f.read_text()).body:
             names = [a.name for a in node.names] if isinstance(node, ast.Import) else \
                 [node.module or ""] if isinstance(node, ast.ImportFrom) and node.level == 0 else []
@@ -132,6 +142,13 @@ def test_training_modules_load_without_h5py_cv2_or_wandb():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=PKG.parent, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+def test_no_source_reads_the_reference_tree():
+    """No module of the port names a file of the reference checkout, such
+    as the JAX demos' default images under its ``assets`` folder: a demo or
+    the release gate takes its images as arguments."""
+    assert not [f.name for f in PKG.rglob("*.py") if "reference/" + "assets" in f.read_text()]
 
 
 def test_no_source_imports_jax():

@@ -417,3 +417,34 @@ def test_tiny_flip_comparison_sets_aside_only_near_flips():
     assert out["aside"] <= chip_smoke.TINY_ASIDE and out["excess"] <= 0 and not out["ok"]
     everywhere = chip_smoke.compare_beside_flips(got + 1.0, want, torch.ones_like(flipped), radius=0)
     assert everywhere["aside"] == 1 and everywhere["excess"] == math.inf and not everywhere["ok"]
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", chip_smoke.INT8_SHAPES, ids=lambda c: c[0])
+def test_int8_planted_fault_breaks_the_bitwise_check(case, dt):
+    """At each of the card run's int8 shapes, one activation rounded the
+    other way changes the output, so the card-against-CPU equality can
+    fail; without the fault the formula gives int8_matmul's bits."""
+    from roma_tpu_torch.ops.int8 import int8_matmul
+
+    _, m, k, n = case
+    x, w, b = chip_smoke.int8_operands(torch.Generator().manual_seed(m + k + n), m, k, n, dt)
+    ref = int8_matmul(x, w, b)
+    assert not torch.equal(chip_smoke.int8_one_rounded_the_other_way(x, w, b), ref)
+
+
+def test_int8_product_count_of_a_request():
+    """135 int8 products a released-width request: 3 x 24 in the ViT, and 9
+    a refiner stack at scales 16, 8, 4, 2 of the coarse pass and 8, 4, 2 of
+    the upsample pass (scale 1 stays on Kernel D); each knob alone counts
+    its own share, and the tiny config's count is what tests/test_torch_int8.py
+    hooks there."""
+    import dataclasses
+
+    from roma_tpu_torch.models import RoMaConfig
+
+    full, tiny = RoMaConfig(), RoMaConfig.tiny()
+    count = lambda cfg, v, r: chip_smoke.int8_products_per_request(dataclasses.replace(cfg, vit_int8=v, refiner_int8=r))
+    assert count(full, True, True) == 72 + 9 * 7 == 135
+    assert count(full, True, False) == 72 and count(full, False, True) == 63 and count(full, False, False) == 0
+    assert count(tiny, True, True) == 6 + 3 * 7

@@ -8,7 +8,6 @@ download behaviour; pretrained_backbone's graft; and the port's copy of the
 download module. Every network call is monkeypatched: nothing is fetched."""
 from __future__ import annotations
 
-import dataclasses
 import urllib.error
 
 import numpy as np
@@ -209,14 +208,6 @@ def test_vit_gelu_tanh_follows_amp_unless_set(amp, knob, tanh):
     m = roma_outdoor(amp=amp, vit_gelu_tanh=knob, **SMALL)
     acts = {blk.mlp.act.approximate for blk in m.net.encoder.dinov2.blocks}
     assert acts == {"tanh" if tanh else "none"}
-
-
-@pytest.mark.parametrize("knob", ["vit_int8", "refiner_int8"])
-def test_int8_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="int8"):
-        roma_outdoor(**{knob: True}, **SMALL)
-    with pytest.raises(NotImplementedError, match="int8"):
-        roma_outdoor(**{**SMALL, "config": dataclasses.replace(TINY, **{knob: True})})
 
 
 def _released_is_tiny(monkeypatch):
