@@ -115,6 +115,15 @@
    atomics keep it from being bitwise); then MegadepthDenseBenchmark over
    the tree at batch 8 (16 pairs): EPE and PCK finite and in range, its
    wall time, A-D launched.
+   Then the convergence phase (check_convergence): tools/convergence_run.py
+   at RoMaConfig.small() (head dims of 64: A and E), 112^2, batch 8, 100
+   steps of the full recipe on analytic textured-plane pairs, in this
+   process: no non-finite gradient step, finite BatchNorm statistics, the
+   loss down, PCK@5 up, A and E launched as the steps and evaluations need.
+   Then the replicas phase (check_replicas): MatchEngine(batch_size=8,
+   devices=["cuda:0", "cuda:0"]) against MatchEngine(batch_size=4) over 24
+   pairs at released widths, pinned by the peaked bias: each pair to the
+   bf16 bar, A-D in every replica's call, pairs/s and peak memory of both.
 7. Runs the per-head attention op (ops.sdpa) forward and backward as a
    caller does, at the DINOv2 shape.
    Right after 2, holds the bf16 tensor-core attention kernels (A, E) at
@@ -164,7 +173,8 @@
    drives lane_refiner_stack, hcw_refiner_stack and the port tools' e1 /
    e2 once as a caller does and counts I, J, K and L's launches.
 10. Prints one JSON line of per-kernel results (each kernel's launches are
-   counted over the phase of 4, 6, 7, 8 or 9 that runs it; its bound_ms is the
+   counted over the phase of 4, 6, 7, 8 or 9 that runs it, plus, for A and
+   E, the convergence phase's and, for A-D, the replicas phase's; its bound_ms is the
    least time the card could take for the same work, from the bytes each
    input and output moves once and the operations over the peaks below;
    library_ms is one PyTorch call that computes the same function, where
@@ -1024,20 +1034,6 @@ def check_attention_edges():
             raise SmokeFailure(f"misaligned bf16 view accepted: {what}")
 
 
-def small_config():
-    """RoMaConfig.tiny() with head dims of 64, which Kernels A and E take."""
-    from roma_tpu_torch.models import RoMaConfig
-
-    return RoMaConfig(
-        vgg_channels=((8, 8), (16, 16), (16, 16, 16, 16), (24, 24, 24, 24)),
-        dino_dim=128, dino_depth=2, dino_heads=2, gp_dim=64, cls_res=16,
-        decoder_depth=2, decoder_heads=2,
-        proj_out=((16, 64), (8, 16), (4, 16), (2, 16), (1, 9)),
-        disp_emb=((16, 8), (8, 8), (4, 8), (2, 8), (1, 6)),
-        corr_radius=((16, 7), (8, 3), (4, 2), (2, 0), (1, 0)), hidden_blocks=2,
-    )
-
-
 def check_zoo(model, pair, warp, cert, d: str) -> tuple[str, str]:
     """The zoo phase: the released models' entry points from local files.
     Writes ``model``'s weights as a reference-layout pair (the roma state
@@ -1627,10 +1623,10 @@ def check_small_match():
     import numpy as np
 
     from roma_tpu_torch.experiments.validate_release import peaked_bias
-    from roma_tpu_torch.models import RegressionMatcher
+    from roma_tpu_torch.models import RegressionMatcher, RoMaConfig
     from roma_tpu_torch.models.zoo import build_net, init_random
 
-    cfg = small_config()
+    cfg = RoMaConfig.small()
     net = init_random(build_net(cfg, "cpu"), seed=1, std=0.1).eval()
     gpu_net = copy.deepcopy(net).to("cuda")
     rs = np.random.RandomState(2)
@@ -1797,10 +1793,11 @@ def check_small_train():
     import torch
 
     from roma_tpu_torch.experiments.validate_release import peaked_bias
+    from roma_tpu_torch.models import RoMaConfig
     from roma_tpu_torch.models.zoo import build_net, init_random
     from roma_tpu_torch.train import RobustLosses, make_optimizer, make_train_step
 
-    cfg = small_config()
+    cfg = RoMaConfig.small()
     net = init_random(build_net(cfg, "cpu"), seed=1, std=0.1).train()
     batch = synthetic_train_batch(2, 112, 5, "cpu")
     # the peaked bias keeps the coarse argmax off near-ties, where one flip
@@ -2128,6 +2125,165 @@ def check_recipe(profile: bool = False):
     torch.cuda.empty_cache()
     shutil.rmtree(work)
     print(f"recipe phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# the convergence phase: the tool's small configuration (head dims of 64, so
+# A and E) at the JAX tiny run's 112^2 and batch 8, as many steps as fit in
+# about a minute on the card (250 in the JAX tiny run; a step took 0.34-0.59 s
+# on the H100's host, whose dispatch bounds it)
+CONVERGENCE_STEPS, CONVERGENCE_RES, CONVERGENCE_BATCH, CONVERGENCE_EVALS = 100, 112, 8, 3
+
+
+def check_convergence(results):
+    """The convergence phase: roma_tpu_torch.tools.convergence_run's main at
+    --config small (RoMaConfig.small()), CONVERGENCE_RES^2, batch
+    CONVERGENCE_BATCH, CONVERGENCE_STEPS steps of the full recipe, in this
+    process, its report written to a temporary directory. Requires no step
+    with a non-finite gradient, finite BatchNorm statistics, the mean loss of
+    the last 3 logs below that of the first 3, PCK@5 after training above
+    PCK@5 before, and A and E launched as often as the steps and the three
+    evaluations' forwards need (train_launches), no other kernel; their
+    counts are added to rows 1 and 3. Prints loss, PCK and EPE before and
+    after (raw and EMA) and the steps a second."""
+    import torch
+
+    from roma_tpu_torch.models import RoMaConfig
+    from roma_tpu_torch.tools import convergence_run
+
+    t_phase = time.perf_counter()
+    zero_counts()
+    with tempfile.TemporaryDirectory() as d:
+        r = convergence_run.main(["--config", "small", "--res", str(CONVERGENCE_RES), "--batch",
+                                  str(CONVERGENCE_BATCH), "--steps", str(CONVERGENCE_STEPS),
+                                  "--log_every", str(CONVERGENCE_STEPS // 10),
+                                  "--tag", "smoke"], out_dir=d)
+    counts = read_counts()
+    torch.cuda.empty_cache()
+    per_step = train_launches(RoMaConfig.small(), remat=False)
+    want = {n: c * CONVERGENCE_STEPS for n, c in per_step.items()}
+    want["fused_attention_packed"] += CONVERGENCE_EVALS * per_step["fused_attention_packed"]
+    print(f"convergence: RoMaConfig.small() at {CONVERGENCE_RES}^2, batch {CONVERGENCE_BATCH}, {CONVERGENCE_STEPS} "
+          f"steps: loss {r['loss_first3_logged']:.6f} -> {r['loss_last3_logged']:.6f} (means of the first and last 3 "
+          f"logs); PCK@1/3/5 {r['eval_pck_before']} -> {r['eval_pck_after']} (EMA {r['eval_pck_after_ema']}); "
+          f"EPE {r['eval_epe_px_before']:.4f} -> {r['eval_epe_px_after']:.4f} px (EMA "
+          f"{r['eval_epe_px_after_ema']:.4f}); non-finite gradient steps {r['nonfinite_grad_steps']}; BatchNorm "
+          f"statistics finite {r['bn_stats_finite']}; {r['steps_per_s']:.4f} steps/s, the host's wait on the next "
+          f"batch {r['batch_wait_s']:.4f} s a step; launches {counts}; "
+          f"card {r['card']}; phase {time.perf_counter() - t_phase:.2f} s", flush=True)
+    require(r["nonfinite_grad_steps"] == 0, f"convergence: {r['nonfinite_grad_steps']} steps with non-finite gradients")
+    require(r["bn_stats_finite"], "convergence: non-finite BatchNorm statistics")
+    require(r["loss_last3_logged"] < r["loss_first3_logged"], "convergence: the loss did not fall")
+    require(r["eval_pck_after"]["pck_5"] > r["eval_pck_before"]["pck_5"], "convergence: PCK@5 did not rise")
+    require(counts == {**dict.fromkeys(counts, 0), **want} and r["launches"] == counts,
+            f"convergence: launches {counts}, want {want}")
+    for n in want:
+        results[n]["launches"] += counts[n]
+
+
+REPLICA_DEVICES, REPLICA_BATCH, REPLICA_SHARD = ("cuda:0", "cuda:0"), 8, 4
+
+
+def check_replicas(results):
+    """The replicas phase: MatchEngine(model, batch_size=4) over the serve
+    phase's stream of 24 synthetic pairs (its 9 PNG pairs in turn), then
+    MatchEngine(model, batch_size=8, devices=["cuda:0", "cuda:0"]) over the
+    same stream: two replicas on the one card, the second a copy of the
+    model, every shard a batch of 4, which exercises the split, the
+    per-device copy streams and events and the gather (not two cards). The
+    model is roma_outdoor at released widths (bf16 amp, 560 -> 864). With
+    the coarse classifier pinned by the serve phase's peaked bias on every
+    replica, each pair's warp and certainty from the two replicas agree
+    with the one replica's to the bf16 bar (4.0e-2 at max|p| = 1) and every
+    call of every replica launches A-D; the two replicas' launches are
+    added to rows 1, 4, 6 and 8. Each engine is then timed unpinned over
+    the stream after its pinned run, the one replica's before the copy
+    exists: pairs/s and peak memory side by side."""
+    import numpy as np
+    import torch
+
+    from roma_tpu_torch.experiments.validate_release import peaked_bias
+    from roma_tpu_torch.models.zoo import roma_outdoor
+    from roma_tpu_torch.serving import MatchEngine
+
+    t_phase = time.perf_counter()
+    model = roma_outdoor(device="cuda", seed=0)
+    field = peaked_bias(2, model.h_resized // 14, model.w_resized // 14, model.net.config.cls_res)
+    calls = []
+
+    def pin(m, replica: int):
+        match = m.match
+
+        def pinned(*a, **kw):  # the symmetric batch is [A_i -> B_i ..., B_i -> A_i ...]
+            b = a[0].shape[0]
+            before = read_counts()
+            out = match(*a, gm_logit_bias=np.concatenate([np.repeat(field[:1], b, 0), np.repeat(field[1:], b, 0)]),
+                        **kw)
+            after = read_counts()
+            calls.append((replica, b, {n: after[n] - before[n] for n in MATCH_KERNELS}))
+            return out
+
+        m.match = pinned
+
+    def run(engine, stream):
+        """The pinned results and their calls, then the unpinned stream timed."""
+        for i, m in enumerate(engine.replicas):
+            pin(m, i)
+        try:
+            out = list(engine.match_paths(stream))
+            made = list(calls)
+            calls.clear()
+        finally:
+            for m in engine.replicas:
+                del m.match
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        n = sum(1 for r in engine.match_paths(stream) if r.error is None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require(n == len(stream), f"replicas: batch {engine.batch_size} matched {n} pairs")
+        return out, made, len(stream) / wall, torch.cuda.max_memory_allocated()
+
+    with tempfile.TemporaryDirectory() as d:
+        files = []
+        for k in range(SERVE_PAIRS):
+            pair = []
+            for im, side in zip(synthetic_pair(100 + k), "ab"):
+                pair.append(os.path.join(d, f"{side}{k}.png"))
+                im.save(pair[-1])
+            files.append(tuple(pair))
+        stream = [files[k % SERVE_PAIRS] for k in range(SERVE_TIMED_PAIRS)]
+        want, one_calls, one_rate, one_peak = run(MatchEngine(model, batch_size=REPLICA_SHARD), stream)
+        two = MatchEngine(model, batch_size=REPLICA_BATCH, devices=REPLICA_DEVICES)
+        require(two.replicas[0] is model and two.replicas[1].net is not model.net, "replicas: not one copy a device")
+        got, two_calls, two_rate, two_peak = run(two, stream)
+    require([r.index for r in got] == [r.index for r in want] == list(range(SERVE_TIMED_PAIRS)),
+            "replicas: results out of order")
+    n_batches = SERVE_TIMED_PAIRS // REPLICA_BATCH
+    require([c[:2] for c in two_calls] == [(0, REPLICA_SHARD), (1, REPLICA_SHARD)] * n_batches,
+            f"replicas: calls {[c[:2] for c in two_calls]}")
+    require(all(all(c[2][n] > 0 for n in MATCH_KERNELS) for c in two_calls + one_calls),
+            "replicas: a call launched no A, B, C or D")
+    equal = 0
+    for g, w in zip(got, want):
+        require(g.warp.device == w.warp.device == two.devices[0], "replicas: results off the first device")
+        check_output("replicas", f"pair {g.index} vs one replica", torch.bfloat16, g.warp, w.warp, "warp ")
+        check_output("replicas", f"pair {g.index} vs one replica", torch.bfloat16, g.certainty, w.certainty,
+                     "certainty ")
+        equal += bool(torch.equal(g.warp, w.warp) and torch.equal(g.certainty, w.certainty))
+    for n in MATCH_KERNELS:
+        results[n]["launches"] += sum(c[2][n] for c in two_calls)
+    print(f"replicas: {SERVE_TIMED_PAIRS} pairs, batch {REPLICA_BATCH} over {list(REPLICA_DEVICES)} (shards of "
+          f"{REPLICA_SHARD}) against batch {REPLICA_SHARD} on one replica: every pair within the bf16 bar, "
+          f"{equal} of {len(got)} bit for bit; launches a call "
+          + "; ".join(f"replica {c[0]}: " + ", ".join(f"{n} {c[2][n]}" for n in MATCH_KERNELS)
+                      for c in two_calls[:2]), flush=True)
+    print(f"replicas: two replicas, batch {REPLICA_BATCH}: {two_rate:.4f} pairs/s, peak device memory {two_peak} "
+          f"bytes; one replica, batch {REPLICA_SHARD}: {one_rate:.4f} pairs/s, peak {one_peak} bytes (timed "
+          f"unpinned after each engine's pinned run, {SERVE_TIMED_PAIRS} pairs each)", flush=True)
+    del model, two, got, want
+    torch.cuda.empty_cache()
+    print(f"replicas phase: {time.perf_counter() - t_phase:.2f} s; card {smi_line()}", flush=True)
 
 
 def run_sdpa_path(results):
@@ -3468,6 +3624,8 @@ def main(argv=None) -> int:
     train_full_width(results, profile=args.profile)
     torch.cuda.empty_cache()
     check_recipe(profile=args.profile)
+    check_convergence(results)
+    check_replicas(results)
     run_sdpa_path(results)
     torch.cuda.empty_cache()
     run_window_path(results)

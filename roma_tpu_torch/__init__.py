@@ -16,6 +16,7 @@ from .models import (
     roma_outdoor,
     tiny_roma_v1_outdoor,
 )
+from .serving import MatchEngine
 
-__all__ = ["RegressionMatcher", "RoMaConfig", "TinyRoMa", "TinyRoMaNet", "XFeatBackbone", "roma_indoor",
-           "roma_outdoor", "tiny_roma_v1_outdoor"]
+__all__ = ["MatchEngine", "RegressionMatcher", "RoMaConfig", "TinyRoMa", "TinyRoMaNet", "XFeatBackbone",
+           "roma_indoor", "roma_outdoor", "tiny_roma_v1_outdoor"]

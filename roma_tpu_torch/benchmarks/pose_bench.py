@@ -162,13 +162,15 @@ def match_pairs_single(model, pairs: Iterable[PosePair]) -> Iterator[tuple[PoseP
         yield pair, warp, certainty
 
 
-def match_pairs_batched(model, pairs: list[PosePair], batch_size: int) -> Iterator[tuple[PosePair, object, object]]:
+def match_pairs_batched(model, pairs: list[PosePair], batch_size: int,
+                        devices=None) -> Iterator[tuple[PosePair, object, object]]:
     """The match phase through ``serving.MatchEngine``: host decode and
-    resize ahead of the card, one two-pass match a batch of pairs. Metrics
-    equal the single-pair protocol's up to the batch's numerics."""
+    resize ahead of the card, one two-pass match a batch of pairs, split
+    over ``devices`` (one replica each) when given. Metrics equal the
+    single-pair protocol's up to the batch's numerics."""
     from ..serving import MatchEngine
 
-    engine = MatchEngine(model, batch_size=batch_size)
+    engine = MatchEngine(model, batch_size=batch_size, devices=devices)
     for pair, result in zip(pairs, engine.match_paths((p.im_A, p.im_B) for p in pairs)):
         yield pair, result.warp, result.certainty
 
@@ -182,18 +184,20 @@ def run_pose_benchmark(
     pixel_offset: float = 0.0,
     double_final_repeat: bool = False,
     batch_size: int | None = None,
+    devices=None,
     seed: int = 0,
     progress: bool = True,
     return_errors: bool = False,
 ):
-    """The whole benchmark; ``batch_size`` takes the batched match phase.
+    """The whole benchmark; ``batch_size`` takes the batched match phase,
+    over ``devices`` (``MatchEngine(devices=)``) when given.
     Two runs over one model object give the same match sets (the
     reference's stochastic-eval caveat, README.md:149-152, without the
     statefulness). ``return_errors`` also returns the pooled per-repeat
     max(e_t, e_R) behind the summary."""
     rng = np.random.default_rng(seed)
     errors = PoseErrors()
-    matched = (match_pairs_batched(model, pairs, batch_size) if batch_size is not None
+    matched = (match_pairs_batched(model, pairs, batch_size, devices) if batch_size is not None
                else match_pairs_single(model, pairs))
     if progress:
         from tqdm import tqdm

@@ -134,3 +134,25 @@ class RoMaConfig:
             corr_radius=((16, 3), (8, 2), (4, 1), (2, 0), (1, 0)),
             hidden_blocks=2,
         )
+
+    @staticmethod
+    def small() -> "RoMaConfig":
+        """``tiny()`` with head dims of 64 in DINOv2 and the
+        TransformerDecoder, the narrowest configuration whose attention
+        takes the port's Kernels A and E on the card (``tiny()``'s head dim
+        of 16 goes to the einsum there); scale 16's local correlation at the
+        released radius 7, scale 8's at 3, scale 4's at 2."""
+        return RoMaConfig(
+            vgg_channels=((8, 8), (16, 16), (16, 16, 16, 16), (24, 24, 24, 24)),
+            dino_dim=128,
+            dino_depth=2,
+            dino_heads=2,
+            gp_dim=64,
+            cls_res=16,
+            decoder_depth=2,
+            decoder_heads=2,
+            proj_out=((16, 64), (8, 16), (4, 16), (2, 16), (1, 9)),
+            disp_emb=((16, 8), (8, 8), (4, 8), (2, 8), (1, 6)),
+            corr_radius=((16, 7), (8, 3), (4, 2), (2, 0), (1, 0)),
+            hidden_blocks=2,
+        )

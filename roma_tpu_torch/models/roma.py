@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from PIL import Image
 
-from ..ops import balanced_sample, grid_sample, interpolate, normalized_grid
+from ..ops import balanced_sample, grid_sample, interpolate, normalized_grid, to_normalized_coords, to_pixel_coords
 from ..utils.image import imagenet_normalize, load_image, resize, to_array
 from .matcher import RoMaNet
 
@@ -185,15 +185,11 @@ class RegressionMatcher:
         return balanced_sample(m, c, num, generator=gen if gen is not None else self.generator,
                                thresh=self.sample_thresh, mode=self.sample_mode)
 
-    @staticmethod
-    def _to_pixel(coords, h, w):
-        return torch.stack((w / 2 * (coords[..., 0] + 1), h / 2 * (coords[..., 1] + 1)), dim=-1)
-
     def to_pixel_coordinates(self, coords, H_A, W_A, H_B=None, W_B=None):
         coords = torch.as_tensor(coords)
         if coords.shape[-1] == 2:
-            return self._to_pixel(coords, H_A, W_A)
-        return self._to_pixel(coords[..., :2], H_A, W_A), self._to_pixel(coords[..., 2:], H_B, W_B)
+            return to_pixel_coords(coords, H_A, W_A)
+        return to_pixel_coords(coords[..., :2], H_A, W_A), to_pixel_coords(coords[..., 2:], H_B, W_B)
 
     def to_normalized_coordinates(self, coords, H_A, W_A, H_B, W_B):
         if isinstance(coords, (list, tuple)):
@@ -201,9 +197,7 @@ class RegressionMatcher:
         else:
             coords = torch.as_tensor(coords)
             k_A, k_B = coords[..., :2], coords[..., 2:]
-        k_A = torch.stack((2 / W_A * k_A[..., 0] - 1, 2 / H_A * k_A[..., 1] - 1), dim=-1)
-        k_B = torch.stack((2 / W_B * k_B[..., 0] - 1, 2 / H_B * k_B[..., 1] - 1), dim=-1)
-        return k_A, k_B
+        return to_normalized_coords(k_A, H_A, W_A), to_normalized_coords(k_B, H_B, W_B)
 
     def match_keypoints(self, x_A, x_B, warp, certainty, return_tuple=True, return_inds=False, max_dist=0.005,
                         cert_th=0):

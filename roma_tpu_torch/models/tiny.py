@@ -16,7 +16,6 @@ softmax stay float32 there too.
 from __future__ import annotations
 
 import functools
-import math
 from pathlib import Path
 
 import numpy as np
@@ -25,19 +24,11 @@ import torch.nn as nn
 from PIL import Image
 
 from ..ops import grid_sample, interpolate, normalized_grid
+from ..ops.local_corr import corr_volume_qmajor
 from ..utils.image import load_image, to_array
 from .blocks import ConvStack
 from .roma import RegressionMatcher
 from .xfeat import XFeatBackbone
-
-
-def corr_volume_qmajor(f0: torch.Tensor, f1: torch.Tensor) -> torch.Tensor:
-    """(B, N0, N1) float32 correlation <f0_i, f1_j> / sqrt(C) of NHWC maps,
-    A's pixels first, so the matching softmax reduces over the last axis."""
-    b, h0, w0, c = f0.shape
-    with torch.autocast(f0.device.type, enabled=False):
-        prod = torch.matmul(f0.reshape(b, h0 * w0, c).float(), f1.reshape(b, -1, c).float().transpose(1, 2))
-    return prod / math.sqrt(c)
 
 
 def softmax_pos_embed(cvt: torch.Tensor, grid_hw: tuple[int, int], exact: bool, down: int = 4) -> torch.Tensor:
@@ -197,7 +188,6 @@ class TinyRoMa:
         return RegressionMatcher.sample(self, matches, certainty, num, key=key, generator=generator)
 
     to_pixel_coordinates = RegressionMatcher.to_pixel_coordinates
-    _to_pixel = staticmethod(RegressionMatcher._to_pixel)
 
     def visualize_warp(self, warp, certainty, im_A, im_B, save_path=None, symmetric: bool = False):
         """Image B sampled through the warp into A's frame, blended to white

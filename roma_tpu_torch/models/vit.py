@@ -16,7 +16,8 @@ import math
 import torch
 import torch.nn as nn
 
-from ..ops import fused_attention_packed, interpolate
+from ..ops import attention_packed_reference, fused_attention_packed, interpolate
+from ..ops.attention import KERNEL_HEAD_DIMS
 from ..ops.int8 import QuantizedWeight, int8_matmul_quantized
 
 
@@ -59,7 +60,12 @@ class Attention(nn.Module):
         self.proj = QLinear(dim, dim, int8=int8)
 
     def forward(self, x):
-        return self.proj(fused_attention_packed(self.qkv(x), self.num_heads))
+        qkv = self.qkv(x)
+        if qkv.is_cuda and qkv.shape[-1] // (3 * self.num_heads) not in KERNEL_HEAD_DIMS:
+            # a head dim Kernel A does not take goes to the einsum on the
+            # card, as the JAX package routes it (roma_tpu/ops/attention.py:92-96)
+            return self.proj(attention_packed_reference(qkv, self.num_heads))
+        return self.proj(fused_attention_packed(qkv, self.num_heads))
 
 
 class LayerScale(nn.Module):
@@ -137,3 +143,12 @@ class DinoV2(nn.Module):
         patch = interpolate(patch, (gh, gw), mode="bicubic",
                             scale_factor=((gh + 0.1) / side, (gw + 0.1) / side))
         return torch.cat((pos[:, :1], patch.reshape(1, gh * gw, -1)), dim=1)
+
+
+def vit_large(device="cuda") -> DinoV2:
+    """The DINOv2 ViT-L/14 preset (reference dinov2.py:333-345; the JAX
+    package's ``vit_large``), made on ``device`` with torch's default
+    initialization: load weights into it, or pass ``device="meta"`` for its
+    layout alone."""
+    with torch.device(device):
+        return DinoV2(embed_dim=1024, depth=24, num_heads=16)

@@ -1,6 +1,12 @@
-from .attention import sdpa, sdpa_reference
+from .attention import attention_packed, sdpa, sdpa_reference
 from .cls_to_flow import cls_to_flow_refine
-from .coords import batched_grid, normalized_grid
+from .coords import (
+    batched_grid,
+    normalized_grid,
+    to_normalized_coords,
+    to_pixel_coords,
+    warp_to_pixel_coords,
+)
 from .fused_attention import (
     attention_backward_reference,
     attention_packed_reference,
@@ -11,7 +17,7 @@ from .fused_attention import (
 from .grid_sample import grid_sample
 from .interpolate import interpolate
 from .kde import kde
-from .local_corr import local_correlation, local_correlation_reference
+from .local_corr import corr_volume, local_correlation, local_correlation_reference
 from .onehot_dots import (
     onehot_dot,
     onehot_dot_2bf16,
@@ -43,12 +49,14 @@ __all__ = [
     "KERNEL_WRAPPERS",
     "WarpSpec",
     "attention_backward_reference",
+    "attention_packed",
     "attention_packed_reference",
     "balanced_sample",
     "batched_grid",
     "cls_to_flow_refine",
     "compact_miss",
     "compact_miss_reference",
+    "corr_volume",
     "fold_block",
     "fold_refiner",
     "fused_attention",
@@ -72,11 +80,14 @@ __all__ = [
     "refiner_stack_reference",
     "sdpa",
     "sdpa_reference",
+    "to_normalized_coords",
+    "to_pixel_coords",
     "warp_sample",
     "warp_sample_reference",
     "warp_tiles",
     "warp_tiles_reference",
     "warp_tiles_v1",
+    "warp_to_pixel_coords",
     "wide_refiner_stack_reference",
     "window_sum",
     "window_sum_reference",

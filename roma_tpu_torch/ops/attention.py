@@ -15,6 +15,9 @@ import math
 
 import torch
 
+# the head dims Kernel A and E take (csrc/attention.cu, attention_bwd.cu)
+KERNEL_HEAD_DIMS = (64, 128)
+
 
 def sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_valid: int | None = None):
     """q, k, v: (B, H, N, D) -> (B, H, N, D) in q's dtype."""
@@ -28,8 +31,14 @@ def sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_valid: i
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_valid: int | None = None):
     """q, k, v: (B, H, N, D) -> (B, H, N, D); differentiable on every route."""
-    if q.device.type == "cuda" and q.shape[-1] in (64, 128):
+    if q.device.type == "cuda" and q.shape[-1] in KERNEL_HEAD_DIMS:
         from .fused_attention import fused_attention
 
         return fused_attention(q, k, v, n_valid)
     return sdpa_reference(q, k, v, n_valid)
+
+
+# the JAX package's name for the packed entry (roma_tpu/ops/attention.py:
+# attention_packed): the kernel wrapper itself. Imported last, as
+# fused_attention imports sdpa_reference from here.
+from .fused_attention import fused_attention_packed as attention_packed  # noqa: E402

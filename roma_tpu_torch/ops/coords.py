@@ -40,3 +40,21 @@ def batched_grid(b: int, h: int, w: int, device=None) -> torch.Tensor:
     """(b, h, w, 2) broadcast view of :func:`normalized_grid` (the JAX
     package's ``batched_grid``, reference ``get_grid``)."""
     return normalized_grid(h, w, device).expand(b, h, w, 2)
+
+
+def to_pixel_coords(coords: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Normalized (x, y) in [-1, 1] -> pixel coordinates ([-1+1/n, 1-1/n] ->
+    [0.5, n-0.5]; reference utils.py:521-531 ``flow_to_pixel_coords``)."""
+    return torch.stack((w * (coords[..., 0] + 1) / 2, h * (coords[..., 1] + 1) / 2), dim=-1)
+
+
+def to_normalized_coords(coords: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Pixel coordinates -> normalized (x, y) in [-1, 1] (reference
+    utils.py:535-545)."""
+    return torch.stack((2 * coords[..., 0] / w - 1, 2 * coords[..., 1] / h - 1), dim=-1)
+
+
+def warp_to_pixel_coords(warp: torch.Tensor, h1: int, w1: int, h2: int, w2: int) -> torch.Tensor:
+    """A 4-channel warp (x1, y1, x2, y2) -> pixel coordinates in A and B
+    (reference utils.py:549-570)."""
+    return torch.cat((to_pixel_coords(warp[..., :2], h1, w1), to_pixel_coords(warp[..., 2:], h2, w2)), dim=-1)

@@ -35,7 +35,7 @@ import math
 import torch
 
 from .. import _ext
-from .attention import sdpa_reference
+from .attention import KERNEL_HEAD_DIMS, sdpa_reference
 
 
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -95,7 +95,7 @@ def _check_views(what: str, *views: torch.Tensor):
     shape, dt = views[0].shape, views[0].dtype
     if any(t.shape != shape or t.dtype != dt for t in views) or len(shape) != 4:
         raise ValueError(f"{what}: q, k, v, out must share one (B, H, N, D) shape and dtype")
-    if shape[-1] not in (64, 128):
+    if shape[-1] not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{what}: head dim must be 64 or 128, got {shape[-1]}")
 
 

@@ -107,16 +107,19 @@ class QuantizedWeight:
     """A module's int8 weight and scales, made again only when the source
     tensor changed: keyed on its (data_ptr, _version, dtype), so copy_,
     load_state_dict and a cast all requantize (as ConvRefiner.folded_blocks
-    refolds). Made outside inference mode, since match() runs under
+    refolds). The cache holds the source's storage, so a new storage (a
+    cast's, which keeps the parameter's version) cannot take its address
+    and pass for it. Made outside inference mode, since match() runs under
     torch.inference_mode and an inference tensor could not be used later
     where autograd is on."""
 
     def __init__(self):
-        self.key, self.value = None, None
+        self.key, self.value, self.source = None, None, None
 
     def __call__(self, weight_nk: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         key = (weight_nk.data_ptr(), weight_nk._version, weight_nk.dtype)
         if self.key != key:
             with torch.inference_mode(False), torch.no_grad():
-                self.key, self.value = key, quantize_weight(weight_nk.detach())
+                self.source = weight_nk.detach()
+                self.key, self.value = key, quantize_weight(self.source)
         return self.value

@@ -137,3 +137,22 @@ def local_correlation(f0: torch.Tensor, f1: torch.Tensor, radius: int, warp: tor
 
 
 local_correlation.launches = 0
+
+
+def corr_volume_qmajor(f0: torch.Tensor, f1: torch.Tensor) -> torch.Tensor:
+    """(B, N0, N1) float32 correlation <f0_i, f1_j> / sqrt(C) of NHWC maps,
+    f0's pixels first, outside autocast: Tiny RoMa's global correlation,
+    whose matching softmax reduces over the last axis."""
+    b, c = f0.shape[0], f0.shape[-1]
+    with torch.autocast(f0.device.type, enabled=False):
+        prod = torch.matmul(f0.reshape(b, -1, c).float(), f1.reshape(b, -1, c).float().transpose(1, 2))
+    return prod / math.sqrt(c)
+
+
+def corr_volume(f0: torch.Tensor, f1: torch.Tensor) -> torch.Tensor:
+    """Global all-pairs correlation in the JAX package's layout
+    (roma_tpu/ops/local_corr.py:corr_volume; reference tiny.py:178-191):
+    f0, f1 (B, H, W, C) -> (B, H1, W1, H0, W0) float32 <f1_j, f0_i> / sqrt(C)."""
+    b, h0, w0, _ = f0.shape
+    h1, w1 = f1.shape[1:3]
+    return corr_volume_qmajor(f1, f0).reshape(b, h1, w1, h0, w0)

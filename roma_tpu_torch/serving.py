@@ -19,7 +19,13 @@ the card idle during every decode and resize. Here:
     short batch is padded with its last pair and those results are dropped;
   * up to ``INFLIGHT`` matched batches may be queued on the card: a CUDA
     event recorded after each batch's match bounds them, and the engine
-    waits on the oldest event, never on the whole device.
+    waits on the oldest event, never on the whole device;
+  * with ``devices=[d0, d1, ...]`` (the JAX engine's ``mesh``) each device
+    holds a replica of the model and each batch is split into
+    ``len(devices)`` contiguous shards, one a replica: each shard crosses
+    to its device on that device's copy stream, is matched there, and its
+    event bounds that device's queue. The results are gathered on
+    ``devices[0]``.
 
 Example::
 
@@ -34,13 +40,16 @@ Example::
     tiny = tiny_roma_v1_outdoor()
     engine = MatchEngine(tiny, batch_size=8, resize_hw=(704, 960), normalize=False)
 
+    engine = MatchEngine(model, batch_size=8, devices=get_devices(2))  # parallel.get_devices
+
 Results come in input order. ``r.warp`` / ``r.certainty`` are tensors on the
-model's device (views into their batch's output); ``on_host=True`` copies
-each batch to the host once and yields NumPy arrays. The multi-card engine
-(the JAX engine's ``mesh``) is not ported.
+model's device, or on ``devices[0]`` (views into their shard's output);
+``on_host=True`` copies each shard to the host once and yields NumPy arrays.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import queue
 import threading
@@ -89,6 +98,22 @@ def _prep(im, hw) -> np.ndarray:
     return np.asarray(resize(load_image(im), hw), np.uint8)
 
 
+def _device(d) -> torch.device:
+    """A device with its index: a bare "cuda" names the current card."""
+    d = torch.device(d)
+    return torch.device("cuda", torch.cuda.current_device()) if d.type == "cuda" and d.index is None else d
+
+
+def _replica(model, device: torch.device):
+    """A copy of ``model`` whose net was moved to ``device`` (its generator
+    remade there with the same seed)."""
+    r = copy.copy(model)
+    r.net = copy.deepcopy(model.net).to(device)
+    r.device = device
+    r.generator = torch.Generator(device=device).manual_seed(model.generator.initial_seed())
+    return r
+
+
 class MatchEngine:
     """Batched dense matcher over a pair stream.
 
@@ -98,7 +123,11 @@ class MatchEngine:
         its canvas (``h_resized``, ``w_resized`` and, when it upsamples,
         ``upsample_res``), or a ``TinyRoMa``; its ``device`` and ``dtype``
         (CPU, float32 when it has none) are the inputs'.
-      batch_size: pairs a match.
+      batch_size: pairs a batch, split evenly over ``devices``.
+      devices: the devices to match on, one replica each (e.g.
+        ``parallel.get_devices()``); the first replica is ``model`` itself
+        when it sits on ``devices[0]``. ``batch_size`` must divide by their
+        number. Default: the model's device alone.
       resize_hw: the (h, w) every image is resized to, for a matcher
         without a canvas (TinyRoMa); a RegressionMatcher defaults to its
         own canvas.
@@ -108,10 +137,14 @@ class MatchEngine:
         else a ValueError.
     """
 
-    def __init__(self, model, batch_size: int = 8, resize_hw: tuple[int, int] | None = None,
+    def __init__(self, model, batch_size: int = 8, devices=None, resize_hw: tuple[int, int] | None = None,
                  normalize: bool = True):
         if batch_size < 1:
             raise ValueError(f"batch_size must be at least 1, got {batch_size}")
+        own = _device(getattr(model, "device", "cpu"))
+        devices = [own] if devices is None else [_device(d) for d in devices]
+        if not devices or batch_size % len(devices):
+            raise ValueError(f"batch_size {batch_size} must divide across the {len(devices)} devices")
         if resize_hw is None and not hasattr(model, "h_resized"):
             raise ValueError("model has no built-in canvas (h_resized / w_resized); pass resize_hw=(h, w), e.g. "
                              "MatchEngine(tiny, resize_hw=(448, 640), normalize=False)")
@@ -122,9 +155,10 @@ class MatchEngine:
         self.batch_size = batch_size
         self.resize_hw = None if resize_hw is None else tuple(resize_hw)
         self.normalize = normalize
-        self.device = torch.device(getattr(model, "device", "cpu"))
+        self.devices = devices
+        self.replicas = [model if i == 0 and d == own else _replica(model, d) for i, d in enumerate(devices)]
         self.dtype = getattr(model, "dtype", torch.float32)
-        self._copy_stream = None
+        self._copy_streams: dict[torch.device, torch.cuda.Stream] = {}
 
     def _resolutions(self):
         if self.resize_hw is not None:
@@ -154,38 +188,60 @@ class MatchEngine:
         names = ("im_A", "im_B", "im_A_high_res", "im_B_high_res")
         return ok, failed, {n: np.stack([o[k] for o in outs]) for k, n in enumerate(names[:len(outs[0])])}
 
-    def _to_device(self, batch: dict) -> dict:
-        """uint8 arrays -> the model's input tensors on its device: through
-        pinned memory and the copy stream on a card, ordered before the
-        match by an event."""
-        if self.device.type != "cuda":
+    def _to_device(self, batch: dict, device: torch.device) -> dict:
+        """uint8 arrays -> tensors on ``device``: through pinned memory and
+        that device's copy stream on a card, ordered before the match by
+        an event."""
+        if device.type != "cuda":
             return {k: torch.from_numpy(v) for k, v in batch.items()}
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self.device)
+        if device not in self._copy_streams:
+            self._copy_streams[device] = torch.cuda.Stream(device)
+        stream = self._copy_streams[device]
         pinned = {k: torch.from_numpy(v).pin_memory() for k, v in batch.items()}
-        with torch.cuda.stream(self._copy_stream):
-            out = {k: v.to(self.device, non_blocking=True) for k, v in pinned.items()}
-            copied = self._copy_stream.record_event()
-        main = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(stream):
+            out = {k: v.to(device, non_blocking=True) for k, v in pinned.items()}
+            copied = stream.record_event()
+        main = torch.cuda.current_stream(device)
         main.wait_event(copied)
         for v in out.values():
             v.record_stream(main)
         return out
 
     @torch.inference_mode()
-    def _dispatch(self, batch: dict):
-        """One match of a prepared batch; returns (warp, certainty, event),
-        the event recorded after the match on a card, else None."""
-        x = {}
-        for k, v in self._to_device(batch).items():
-            v = v.float() / 255.0
-            x[k] = (imagenet_normalize(v) if self.normalize else v).to(self.dtype)
-        warp, certainty = self.model.match(x.pop("im_A"), x.pop("im_B"), **x)
-        done = None
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
-        return warp, certainty, done
+    def _dispatch(self, batch: dict) -> list[tuple]:
+        """One match a shard of a prepared batch, on its replica's device;
+        returns a (warp, certainty, event) a shard, the event recorded
+        after the match on a card, else None."""
+        n = self.batch_size // len(self.replicas)
+        out = []
+        for i, (model, device) in enumerate(zip(self.replicas, self.devices)):
+            shard = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
+                x = {}
+                for k, v in self._to_device(shard, device).items():
+                    v = v.float() / 255.0
+                    x[k] = (imagenet_normalize(v) if self.normalize else v).to(self.dtype)
+                warp, certainty = model.match(x.pop("im_A"), x.pop("im_B"), **x)
+                done = None
+                if device.type == "cuda":
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(device))
+            out.append((warp, certainty, done))
+        return out
+
+    def _gather(self, shards: list[tuple], on_host: bool) -> list[tuple]:
+        """Wait for each shard's match; its (warp, certainty) rows in batch
+        order, views on ``devices[0]``, or NumPy arrays (one copy a shard)."""
+        rows = []
+        for warp, certainty, done in shards:
+            if done is not None:
+                done.synchronize()
+            if on_host:
+                warp, certainty = warp.cpu().numpy(), certainty.cpu().numpy()
+            else:
+                warp, certainty = warp.to(self.devices[0]), certainty.to(self.devices[0])
+            rows += zip(warp, certainty)
+        return rows
 
     def match_paths(self, pairs: Iterable[tuple], *, on_host: bool = False,
                     on_error: str = "raise") -> Iterator[MatchResult]:
@@ -224,12 +280,9 @@ class MatchEngine:
                 prepped.put(None)
 
         def drain_one():
-            ok, failed, warp, certainty, done = pending.pop(0)
-            if done is not None:
-                done.synchronize()
-            if on_host and warp is not None:
-                warp, certainty = warp.cpu().numpy(), certainty.cpu().numpy()
-            results = [MatchResult(idx, a, b, warp[i], certainty[i]) for i, (idx, a, b) in enumerate(ok)]
+            ok, failed, shards = pending.pop(0)
+            rows = self._gather(shards, on_host) if shards else []
+            results = [MatchResult(idx, a, b, *rows[i]) for i, (idx, a, b) in enumerate(ok)]
             results += [MatchResult(idx, a, b, None, None, error=e) for idx, a, b, e in failed]
             yield from sorted(results, key=lambda r: r.index)
 
@@ -242,10 +295,7 @@ class MatchEngine:
                 if item is None:
                     break
                 ok, failed, batch = item
-                warp = certainty = done = None
-                if batch is not None:
-                    warp, certainty, done = self._dispatch(batch)
-                pending.append((ok, failed, warp, certainty, done))
+                pending.append((ok, failed, None if batch is None else self._dispatch(batch)))
                 if len(pending) > INFLIGHT:
                     yield from drain_one()
             while pending:

@@ -3,7 +3,9 @@ against the model's cuDNN refiner stack) and ``bench_onehot_dots`` (Kernels K
 and L) drive the port's graveyard and microbenchmark kernels; their timings
 need a CUDA card, and at ``device="cpu"`` their functions compute the same
 outputs through the plain versions and time nothing. ``crossimpl`` holds the
-cross-implementation capstone's synthetic scenes and seeded weights."""
+cross-implementation capstone's synthetic scenes and seeded weights;
+``convergence_run`` trains the full recipe for hundreds of steps on analytic
+pairs and scores the flow against their exact warp."""
 from __future__ import annotations
 
 import subprocess

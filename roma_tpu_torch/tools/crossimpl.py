@@ -406,4 +406,3 @@ class PrecomputedMatcher:
         return balanced_sample(m, c, num, generator=gen, thresh=0.05, mode="threshold_balanced")
 
     to_pixel_coordinates = RegressionMatcher.to_pixel_coordinates
-    _to_pixel = staticmethod(RegressionMatcher._to_pixel)

@@ -54,6 +54,19 @@ def imagenet_normalize(x):
     return (x - mean) / std
 
 
+def check_not_i16(im: Image.Image):
+    """Refuse a 16-bit integer image (mode I;16), as the reference's
+    check_not_i16 does."""
+    if im.mode == "I;16":
+        raise ValueError("Input images should not be 16-bit (mode I;16)")
+
+
+def check_rgb(im: Image.Image):
+    """Refuse an image that is not RGB."""
+    if im.mode != "RGB":
+        raise ValueError(f"Expected an RGB image, got mode {im.mode}")
+
+
 def to_pil(x: np.ndarray, unnormalize: bool = False) -> Image.Image:
     """float HWC array (optionally ImageNet-normalized) -> PIL image
     (roma_tpu/utils/image.py:to_pil; reference tensor_to_pil, utils.py:460-480)."""
@@ -62,3 +75,17 @@ def to_pil(x: np.ndarray, unnormalize: bool = False) -> Image.Image:
         x = x * IMAGENET_STD + IMAGENET_MEAN
     x = np.clip(x, 0.0, 1.0)
     return Image.fromarray((x * 255).astype(np.uint8))
+
+
+def prepare(im, size_hw: tuple[int, int] | None = None, normalize: bool = True):
+    """The whole host preprocess: load, resize to (h, w) when given, [0, 1]
+    float32, ImageNet-normalize when asked. Returns the (H, W, 3) array and
+    the original (H, W)."""
+    pil = load_image(im)
+    w0, h0 = pil.size
+    if size_hw is not None:
+        pil = resize(pil, size_hw)
+    x = to_array(pil)
+    if normalize:
+        x = imagenet_normalize(x)
+    return x, (h0, w0)

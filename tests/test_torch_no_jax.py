@@ -91,13 +91,18 @@ def test_imports_and_matches_with_jax_blocked():
 
 
 def test_evaluation_modules_load_no_jax_cv2_or_tqdm():
-    """serving, benchmarks, native and tools.crossimpl import with JAX, the
-    JAX package, OpenCV and tqdm all unimportable (OpenCV and tqdm are
-    imported inside the functions that use them)."""
+    """serving (and the package's MatchEngine, get_devices and utils),
+    benchmarks, native and tools.crossimpl import with JAX, the JAX package,
+    OpenCV and tqdm all unimportable (OpenCV and tqdm are imported inside
+    the functions that use them)."""
     code = (
         "import sys\n"
         f"for m in {BANNED + ('cv2', 'tqdm')!r}: sys.modules[m] = None\n"
         "import roma_tpu_torch.serving, roma_tpu_torch.benchmarks, roma_tpu_torch.native\n"
+        "from roma_tpu_torch import MatchEngine\n"
+        "from roma_tpu_torch.parallel import get_devices\n"
+        "from roma_tpu_torch.utils import check_not_i16, check_rgb, prepare\n"
+        "from roma_tpu_torch.ops import attention_packed, corr_volume, to_pixel_coords, warp_to_pixel_coords\n"
         "import roma_tpu_torch.tools.crossimpl\n"
         "from roma_tpu_torch.benchmarks import pose, pose_bench, mega1500, mega1500_native, scannet, hpatches\n"
         "import roma_tpu_torch.ops.int8, roma_tpu_torch.tools.int8_drift\n"
@@ -124,10 +129,11 @@ def test_evaluation_modules_load_no_jax_cv2_or_tqdm():
 
 def test_training_modules_load_without_h5py_cv2_or_wandb():
     """The datasets, the process-group helpers, profiling, the dense
-    benchmark and the entry points import with JAX, the JAX package, h5py,
-    OpenCV, tqdm and wandb all unimportable: h5py is imported by MegaDepth's
-    depth read, tqdm by the benchmark's loop, wandb by the metric logger
-    that asks for it, and ScanNet's depth is read with PIL."""
+    benchmark, the entry points and the convergence run import with JAX,
+    the JAX package, h5py, OpenCV, tqdm and wandb all unimportable: h5py is
+    imported by MegaDepth's depth read, tqdm by the benchmark's loop, wandb
+    by the metric logger that asks for it, and ScanNet's depth is read with
+    PIL."""
     code = (
         "import sys\n"
         f"for m in {BANNED + ('h5py', 'cv2', 'tqdm', 'wandb')!r}: sys.modules[m] = None\n"
@@ -135,6 +141,8 @@ def test_training_modules_load_without_h5py_cv2_or_wandb():
         "import roma_tpu_torch.benchmarks.mega_dense, roma_tpu_torch.experiments.common\n"
         "from roma_tpu_torch.experiments import train_roma_outdoor, train_roma_indoor, train_tiny_roma_v1_outdoor\n"
         "train_roma_outdoor.parser().parse_args([])\n"
+        "from roma_tpu_torch.tools import convergence_run\n"
+        "convergence_run.parser().parse_args([])\n"
         "from roma_tpu_torch.utils.profiling import MetricLogger\n"
         "MetricLogger(use_wandb=True).log({'loss': 1.0}, step=1)\n"
         "print('ok')\n"

@@ -4,6 +4,7 @@ D, B, C, J, I and H's plain versions breaking their ulp bar and K and L's
 breaking the f32 bar, the edge shapes' coverage and the paths they take,
 H's bound, L's expected rounding error, and where the build keeps the
 report it reads."""
+import functools
 import math
 import os
 import sys
@@ -17,6 +18,19 @@ import chip_smoke  # noqa: E402
 from roma_tpu_torch import _ext, ops  # noqa: E402
 
 TC_KERNELS = [(kind, d) for kind in ("fwd", "bwd_dq", "bwd_dkv") for d in (64, 128)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the tier runs several test processes at once, and
+    torch's thread pools in each spin against the others' (the planted
+    cases took 50-86 s a test under the tier against 0.15 s alone)."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(was)
 
 
 def ptxas_report(spilled=None, drop=None):
@@ -69,8 +83,14 @@ def test_ptxas_report_sits_beside_the_library():
 
 
 def _planted_cases():
-    """(name, plain output, planted-fault output) of Kernels D and B at a
-    small shape in bf16, on the CPU, drawn as chip_smoke.py draws them."""
+    """(name, plain output, planted-fault output) of Kernels D, B, C, J, I
+    and H at a small shape in bf16, on the CPU, drawn as chip_smoke.py draws
+    them: copies of the cases, which are built once a process."""
+    return [(name, ref.clone(), wrong.clone()) for name, ref, wrong in _planted_cases_once()]
+
+
+@functools.cache
+def _planted_cases_once():
     gen = torch.Generator().manual_seed(3)
     rn = lambda *s: torch.randn(*s, generator=gen).to(torch.bfloat16)
     blocks = chip_smoke.refiner_blocks(gen, device="cpu")
