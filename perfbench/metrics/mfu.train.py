@@ -1,0 +1,13 @@
+"""The whole training step's share of the card's bf16 peak, in %: the
+plain reference's operations for one sample's forward and backward without
+recompute (torch's FlopCounterMode, cached under build/perfbench/) times
+the samples completed a second, over 989 TFLOP/s; the traced stretch, which
+the profiler slows, is left out of the samples and the seconds."""
+from perfbench.lib import costs
+
+
+def read(run):
+    rate = costs.untraced_rate(run.records)
+    if rate is None:
+        return None
+    return 100.0 * costs.model_flops(run.cfg["model"], "train", run.out_dir) * rate / costs.PEAK_BF16
