@@ -18,6 +18,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
+
 BATCH_KEYS = ("im_A", "im_B", "im_A_depth", "im_B_depth", "K1", "K2", "T_1to2")
 
 
@@ -110,10 +112,11 @@ def to_device(batch: dict, device) -> dict:
     """A numpy batch as tensors on ``device``: on a CUDA device each array is
     copied into pinned host memory and sent with ``non_blocking=True``, so
     the copy overlaps the host's next work; the card's stream orders it
-    before any kernel that reads it."""
+    before any kernel that reads it. Span: ``roma.loader.to_device``."""
     device = torch.device(device)
     out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        out[k] = t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t.to(device)
+    with annotate("roma.loader.to_device"):
+        for k, v in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            out[k] = t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t.to(device)
     return out

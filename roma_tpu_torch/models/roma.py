@@ -21,6 +21,7 @@ from PIL import Image
 
 from ..ops import balanced_sample, grid_sample, interpolate, normalized_grid, to_normalized_coords, to_pixel_coords
 from ..utils.image import imagenet_normalize, load_image, resize, to_array
+from ..utils.profiling import annotate
 from .matcher import RoMaNet
 
 
@@ -103,7 +104,9 @@ class RegressionMatcher:
         normalization run."""
         out = []
         for p in (pil_A, pil_B):
-            x = torch.from_numpy(np.array(resize(p, hw)))[None].to(self.device)
+            with annotate("roma.match.resize"):
+                p = resize(p, hw)
+            x = torch.from_numpy(np.array(p))[None].to(self.device)
             out.append(imagenet_normalize(x.float() / 255.0).to(self.dtype))
         return tuple(out)
 
@@ -125,7 +128,45 @@ class RegressionMatcher:
         pair (PIL, path or an HWC array), or any input with
         ``batched=False``, comes back without the batch axis (the first
         pair's result).
+
+        Spans (``utils.profiling``): ``roma.match``; inside it
+        ``roma.match.prep`` (load, ``roma.match.resize`` for each bicubic
+        resize, copy, normalize), ``roma.match.coarse`` and
+        ``roma.match.upsample``, each with its device time.
         """
+        with annotate("roma.match"):
+            return self._match(im_A_input, im_B_input, im_A_high_res, im_B_high_res, batched, gm_logit_bias)
+
+    def _match(self, im_A_input, im_B_input, im_A_high_res, im_B_high_res, batched, gm_logit_bias):
+        with annotate("roma.match.prep"):
+            im_A, im_B, im_A_u, im_B_u, unbatch = self._prep_inputs(im_A_input, im_B_input, im_A_high_res,
+                                                                    im_B_high_res)
+            unbatch = unbatch or not batched
+            if gm_logit_bias is not None:
+                gm_logit_bias = torch.as_tensor(gm_logit_bias, device=self.device, dtype=torch.float32)
+        out_hw = self.get_output_resolution()
+        with annotate("roma.match.coarse", device=True):
+            low, flow, cert = self._match_coarse(im_A, im_B, out_hw, gm_logit_bias)
+        if not self.attenuate_cert:
+            low = torch.zeros_like(low)
+        if self.upsample_preds:
+            if im_A_u is None:  # array input without high-res copies: bicubic upsample
+                im_A_u = interpolate(im_A, out_hw, mode="bicubic")
+                im_B_u = interpolate(im_B, out_hw, mode="bicubic")
+            with annotate("roma.match.upsample", device=True):
+                flow, cert = self._match_upsample(im_A_u, im_B_u, flow, cert)
+        else:
+            flow = interpolate(flow, out_hw, mode="bilinear")
+            cert = interpolate(cert, out_hw, mode="bilinear")
+        warp, certainty = self._assemble(flow, cert, low)
+        if unbatch:
+            return warp[0], certainty[0]
+        return warp, certainty
+
+    def _prep_inputs(self, im_A_input, im_B_input, im_A_high_res, im_B_high_res):
+        """The inputs of both passes on the device: (im_A, im_B, im_A_u,
+        im_B_u, unbatch), the upsample pass's None where it takes the coarse
+        inputs upsampled on the device."""
         out_hw = self.get_output_resolution()
         im_A_u = im_B_u = None
         # inputs of both passes go to the card before the coarse pass: a
@@ -146,25 +187,7 @@ class RegressionMatcher:
                 raise ValueError("array inputs must have H, W divisible by 14")
             if im_A_high_res is not None and self.upsample_preds:
                 im_A_u, im_B_u = self._as_batch(im_A_high_res), self._as_batch(im_B_high_res)
-        unbatch = unbatch or not batched
-        if gm_logit_bias is not None:
-            gm_logit_bias = torch.as_tensor(gm_logit_bias, device=self.device, dtype=torch.float32)
-
-        low, flow, cert = self._match_coarse(im_A, im_B, out_hw, gm_logit_bias)
-        if not self.attenuate_cert:
-            low = torch.zeros_like(low)
-        if self.upsample_preds:
-            if im_A_u is None:  # array input without high-res copies: bicubic upsample
-                im_A_u = interpolate(im_A, out_hw, mode="bicubic")
-                im_B_u = interpolate(im_B, out_hw, mode="bicubic")
-            flow, cert = self._match_upsample(im_A_u, im_B_u, flow, cert)
-        else:
-            flow = interpolate(flow, out_hw, mode="bilinear")
-            cert = interpolate(cert, out_hw, mode="bilinear")
-        warp, certainty = self._assemble(flow, cert, low)
-        if unbatch:
-            return warp[0], certainty[0]
-        return warp, certainty
+        return im_A, im_B, im_A_u, im_B_u, unbatch
 
     def sample(self, matches, certainty, num: int = 10000, key: torch.Generator | int | None = None,
                generator: torch.Generator | None = None):

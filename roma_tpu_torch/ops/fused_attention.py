@@ -35,6 +35,7 @@ import math
 import torch
 
 from .. import _ext
+from ..utils.profiling import spanned
 from .attention import KERNEL_HEAD_DIMS, sdpa_reference
 
 
@@ -157,6 +158,7 @@ def _head_forward(q, k, v, n_valid, with_lse: bool):
     return out, lse
 
 
+@spanned("roma.ops.fused_attention_backward")
 def fused_attention_backward(q, k, v, out, lse, dout, dq, dk, dv, n_valid: int | None = None):
     """Kernel E: gradients of the attention into ``dq``, ``dk``, ``dv``.
 
@@ -240,12 +242,14 @@ class _HeadAttention(torch.autograd.Function):
         return (*fused_attention_backward(q, k, v, out, lse, dout, *grads, n_valid=ctx.n_valid), None)
 
 
+@spanned("roma.ops.fused_attention_packed")
 def fused_attention_packed(qkv: torch.Tensor, num_heads: int, n_valid: int | None = None):
     """(B, N, 3C) packed qkv -> (B, N, C), differentiable; head dim
     C/num_heads in {64, 128} on CUDA, any on CPU."""
     return _PackedAttention.apply(qkv, num_heads, n_valid)
 
 
+@spanned("roma.ops.fused_attention")
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_valid: int | None = None):
     """q, k, v (B, H, N, D) -> (B, H, N, D), differentiable; head dim in
     {64, 128} on CUDA, any on CPU."""

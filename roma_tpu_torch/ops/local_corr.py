@@ -22,6 +22,7 @@ import math
 import torch
 
 from .. import _ext
+from ..utils.profiling import spanned
 
 
 def _base_indices(warp: torch.Tensor, h: int, w: int):
@@ -114,6 +115,7 @@ def corr_checks(what, f0, f1, radius, warp):
     return b, h, w, c, nv
 
 
+@spanned("roma.ops.local_correlation")
 def local_correlation(f0: torch.Tensor, f1: torch.Tensor, radius: int, warp: torch.Tensor):
     """f0, f1 (B, H, W, C); warp (B, H, W, 2) float32 A->B in [-1, 1] ->
     (B, H, W, (2r+1)^2) in f0's dtype."""

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from .. import _ext
+from ..utils.profiling import spanned
 
 FORMS = ("f32", "2bf16")
 VEC_BYTES = 16  # K's vector path moves 4 queries of yl, fy and o at a time; L reads tab's rows so
@@ -80,6 +81,7 @@ def onehot_checks(what, win, yl, fy, form):
     return nt, wh, cww, t, path, 4 * wh
 
 
+@spanned("roma.ops.onehot_dot")
 def onehot_dot(win: torch.Tensor, yl: torch.Tensor, fy: torch.Tensor, form: str = "f32") -> torch.Tensor:
     """win (NT, WH, CWW) bf16, yl int32 and fy float32 (NT, 1, T) ->
     (NT, 1, T) float32, in ``form`` ("f32" or "2bf16"): Kernel K."""
@@ -168,6 +170,7 @@ def window_sum_checks(what, tab, oy, jx, img, wh, ns):
     return b, hp, nj, xqc, nt, b * hp * nj
 
 
+@spanned("roma.ops.window_sum")
 def window_sum(tab: torch.Tensor, oy: torch.Tensor, jx: torch.Tensor, img: torch.Tensor,
                wh: int, ns: int) -> torch.Tensor:
     """tab (B, HP, NJ, XQC) bf16, oy / jx / img int32 (NT,) -> (NT, 1)

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _ext
+from ..utils.profiling import spanned
 
 BN_EPS = 1e-5
 MAX_C = 32  # widest stack the kernel takes; the routing bound in models/matcher.py
@@ -115,6 +116,7 @@ def stack_checks(what, x, blocks):
     return b, h, w, c, plan
 
 
+@spanned("roma.ops.fused_refiner_stack")
 def fused_refiner_stack(x: torch.Tensor, blocks: list[dict]) -> torch.Tensor:
     """Run a chain of folded refiner blocks on x (B, H, W, C), C <= 32 on CUDA."""
     if x.device.type == "cpu":
@@ -204,6 +206,7 @@ def packed_weights(blocks: list[dict]) -> list[torch.Tensor]:
     return kept[1]
 
 
+@spanned("roma.ops.fused_refiner_stack_packed")
 def fused_refiner_stack_packed(x: torch.Tensor, blocks: list[dict], s_rows: int = 32,
                                cg: int = 8) -> torch.Tensor:
     """The same chain as :func:`fused_refiner_stack`, several blocks per launch.

@@ -25,6 +25,7 @@ from dataclasses import dataclass
 import torch
 
 from .. import _ext
+from ..utils.profiling import spanned
 from .grid_sample import grid_sample
 from .window_util import compact_miss
 
@@ -207,12 +208,14 @@ def _tiles(entry, fn, x, yl, xl, fy, fx, oy, ox, fpos, fval, wh, ww, pm):
     return out
 
 
+@spanned("roma.ops.warp_tiles")
 def warp_tiles(x, yl, xl, fy, fx, oy, ox, fpos, fval, wh, ww, pm):
     """Kernel G, the v2 entry (replaces roma_tpu/ops/tile_window.py:_warp_kernel).
     Arguments and result as :func:`warp_tiles_reference`."""
     return _tiles("roma_window_warp", warp_tiles, x, yl, xl, fy, fx, oy, ox, fpos, fval, wh, ww, pm)
 
 
+@spanned("roma.ops.warp_tiles_v1")
 def warp_tiles_v1(x, yl, xl, fy, fx, oy, ox, fpos, fval, wh, ww, pm):
     """Kernel G, the v1 entry (replaces graveyard/window_warp_v1.py:_kernel):
     the same function, launched for 64x64 tiles."""

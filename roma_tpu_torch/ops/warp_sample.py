@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from .. import _ext
+from ..utils.profiling import spanned
 from .grid_sample import grid_sample
 
 
@@ -68,6 +69,7 @@ def warp_sample_checks(what, y, flow):
     return b, h, w, c, hq, wq, path
 
 
+@spanned("roma.ops.warp_sample")
 def warp_sample(y: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """y (B, H, W, C); flow (B, Hq, Wq, 2) float32 in [-1, 1] ->
     (B, Hq, Wq, C) in y's dtype."""

@@ -24,6 +24,7 @@ import weakref
 import torch
 
 from .. import _ext
+from ..utils.profiling import spanned
 from .refiner_stack import refiner_stack_reference
 
 KSIZE = 5  # the kernels' depthwise size: the released refiners' 5x5
@@ -125,6 +126,7 @@ def _launch(what: str, x: torch.Tensor, blk: dict, layout: int):
     return out
 
 
+@spanned("roma.ops.lane_refiner_block")
 def lane_refiner_block(x: torch.Tensor, blk: dict) -> torch.Tensor:
     """One folded block on NHWC x (B, H, W, C), any C: Kernel I (in
     bfloat16 on the tensor cores, C <= HCW_TC_MAX_C)."""
@@ -138,6 +140,7 @@ def lane_refiner_block(x: torch.Tensor, blk: dict) -> torch.Tensor:
 lane_refiner_block.launches = 0
 
 
+@spanned("roma.ops.hcw_refiner_block")
 def hcw_refiner_block(x: torch.Tensor, blk: dict) -> torch.Tensor:
     """One folded block on x in the (B, H, C, W) layout, any C: Kernel J."""
     if x.device.type == "cpu":

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from .. import _ext
+from ..utils.profiling import spanned
 
 
 def _query_subblock(t: int, cap: int) -> int:
@@ -70,6 +71,7 @@ def compact_checks(miss: torch.Tensor, t: int, kf: int) -> str:
     return "generic"
 
 
+@spanned("roma.ops.compact_miss")
 def compact_miss(miss: torch.Tensor, t: int, kf: int) -> torch.Tensor:
     """(bnt, 1, T) bool -> (bnt, kf, 1) int32 miss positions, sentinel T."""
     if miss.shape[1:] != (1, t) or miss.dtype != torch.bool:

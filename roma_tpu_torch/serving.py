@@ -20,6 +20,12 @@ the card idle during every decode and resize. Here:
   * up to ``INFLIGHT`` matched batches may be queued on the card: a CUDA
     event recorded after each batch's match bounds them, and the engine
     waits on the oldest event, never on the whole device;
+  * its spans (``utils.profiling``), one unit a batch: ``roma.engine.prep``
+    on the producer thread (decode and resize of a batch),
+    ``roma.engine.wait`` (the consumer blocked on the prepared batches),
+    ``roma.engine.dispatch`` (the copy and scaling, ``roma.engine.to_device``,
+    and the match's enqueue) and ``roma.engine.gather`` (the wait for a
+    batch's events);
   * with ``devices=[d0, d1, ...]`` (the JAX engine's ``mesh``) each device
     holds a replica of the model and each batch is split into
     ``len(devices)`` contiguous shards, one a replica: each shard crosses
@@ -60,6 +66,7 @@ import numpy as np
 import torch
 
 from .utils.image import imagenet_normalize, load_image, resize
+from .utils.profiling import annotate, new_units
 
 # host batches prepared ahead of the match, matched batches queued on the card
 # before the engine waits for the oldest (bounds device memory), and decode /
@@ -218,9 +225,10 @@ class MatchEngine:
             shard = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
             with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
                 x = {}
-                for k, v in self._to_device(shard, device).items():
-                    v = v.float() / 255.0
-                    x[k] = (imagenet_normalize(v) if self.normalize else v).to(self.dtype)
+                with annotate("roma.engine.to_device"):
+                    for k, v in self._to_device(shard, device).items():
+                        v = v.float() / 255.0
+                        x[k] = (imagenet_normalize(v) if self.normalize else v).to(self.dtype)
                 warp, certainty = model.match(x.pop("im_A"), x.pop("im_B"), **x)
                 done = None
                 if device.type == "cuda":
@@ -260,6 +268,7 @@ class MatchEngine:
         if not indexed:
             return
         chunks = [indexed[i:i + self.batch_size] for i in range(0, len(indexed), self.batch_size)]
+        first_unit = new_units(len(chunks) + 1)  # batch k's spans share first_unit + k; the last wait, one more
         prepped: queue.Queue = queue.Queue(maxsize=PREFETCH)
         err: list[BaseException] = []
         stop = threading.Event()
@@ -267,10 +276,11 @@ class MatchEngine:
         def producer():
             try:
                 with ThreadPoolExecutor(WORKERS) as pool:
-                    for chunk in chunks:
+                    for k, chunk in enumerate(chunks):
                         if stop.is_set():
                             break
-                        ok, failed, batch = self._prep_batch(pool, chunk)
+                        with annotate("roma.engine.prep", unit=first_unit + k):
+                            ok, failed, batch = self._prep_batch(pool, chunk)
                         if failed and on_error == "raise":
                             raise MatchEngineError(*failed[0])
                         prepped.put((ok, failed, batch))
@@ -280,8 +290,9 @@ class MatchEngine:
                 prepped.put(None)
 
         def drain_one():
-            ok, failed, shards = pending.pop(0)
-            rows = self._gather(shards, on_host) if shards else []
+            unit, ok, failed, shards = pending.pop(0)
+            with annotate("roma.engine.gather", unit=unit):
+                rows = self._gather(shards, on_host) if shards else []
             results = [MatchResult(idx, a, b, *rows[i]) for i, (idx, a, b) in enumerate(ok)]
             results += [MatchResult(idx, a, b, None, None, error=e) for idx, a, b, e in failed]
             yield from sorted(results, key=lambda r: r.index)
@@ -290,12 +301,17 @@ class MatchEngine:
         t.start()
         pending: list[tuple] = []
         try:
+            unit = first_unit
             while True:
-                item = prepped.get()
+                with annotate("roma.engine.wait", unit=unit):
+                    item = prepped.get()
                 if item is None:
                     break
                 ok, failed, batch = item
-                pending.append((ok, failed, None if batch is None else self._dispatch(batch)))
+                with annotate("roma.engine.dispatch", unit=unit):
+                    shards = None if batch is None else self._dispatch(batch)
+                pending.append((unit, ok, failed, shards))
+                unit += 1
                 if len(pending) > INFLIGHT:
                     yield from drain_one()
             while pending:

@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 
 from ..parallel import dist
+from ..utils.profiling import annotate
 from .optim import RoMaOptimizer, in_encoder
 
 
@@ -100,7 +101,12 @@ def make_train_step(
     defaults to ``net(batch["im_A"], batch["im_B"])``. The metrics are
     tensors on the device: reading one waits for the step. Under a process
     group, ``batch`` is this rank's slice and the collectives of the
-    module's docstring run (at any world size, one rank included)."""
+    module's docstring run (at any world size, one rank included).
+
+    Spans (``utils.profiling``): ``roma.train.step``; inside it
+    ``roma.train.forward`` (forward and objective), ``roma.train.backward``
+    and ``roma.train.optimizer`` (all-reduce, gradient statistics, AdamW),
+    each with its device time."""
     if forward is None:
         def forward(net, batch):
             return net(batch["im_A"], batch["im_B"])
@@ -108,14 +114,7 @@ def make_train_step(
     params = dict(net.named_parameters())
     trainable = {k: p for k, p in params.items() if p.requires_grad}
 
-    def step(batch: dict) -> dict:
-        net.train()
-        optimizer.zero_grad()
-        dev = next(iter(trainable.values())).device.type
-        with torch.autocast(dev, dtype=amp_dtype or torch.bfloat16, enabled=amp_dtype is not None):
-            corresps = forward(net, batch)
-        loss, metrics = objective(corresps, batch)
-        loss.backward()
+    def update(loss, metrics) -> dict:
         if dist.active():
             # the graph is the same on every rank, so is the list of
             # gradients; a parameter none reached stays out of the update,
@@ -131,6 +130,20 @@ def make_train_step(
             flat = torch.stack([metrics[k].detach().float() for k in keys])
             metrics = dict(zip(keys, dist.all_reduce_mean_([flat])[0]))
         return {**{k: v.detach() for k, v in metrics.items()}, **stats}
+
+    def step(batch: dict) -> dict:
+        with annotate("roma.train.step"):
+            net.train()
+            optimizer.zero_grad()
+            dev = next(iter(trainable.values())).device.type
+            with annotate("roma.train.forward", device=True):
+                with torch.autocast(dev, dtype=amp_dtype or torch.bfloat16, enabled=amp_dtype is not None):
+                    corresps = forward(net, batch)
+                loss, metrics = objective(corresps, batch)
+            with annotate("roma.train.backward", device=True):
+                loss.backward()
+            with annotate("roma.train.optimizer", device=True):
+                return update(loss, metrics)
 
     step.param_names = list(trainable)
     return step
