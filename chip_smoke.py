@@ -26,7 +26,8 @@
 4. Builds roma_outdoor at the released widths on seeded random weights
    (bf16 amp, 560 -> 864, symmetric), answers 3 match requests on seeded
    synthetic image pairs, samples 5000 matches from each, and checks shapes,
-   finiteness, sample range and that every kernel of the match launched.
+   finiteness, sample range and that every kernel of the match launched
+   (M once a canvas a request).
    Then the int8 phase (check_int8): int8_matmul on the card against the
    same call on the CPU bit for bit at INT8_SHAPES (the ViT's proj, fc1 and
    fc2 at 2 x 1601 tokens, each refiner width at 4 rows; bf16 and f32),
@@ -172,6 +173,11 @@
    take. After 8's caller run,
    drives lane_refiner_stack, hcw_refiner_stack and the port tools' e1 /
    e2 once as a caller does and counts I, J, K and L's launches.
+   Right after 9, the resize phase (check_resize): Kernel M through the
+   card tests of tests/test_torch_resize.py (bit for bit its plain version
+   over the sweep; match()'s inputs bit for bit the PIL path's, float32 and
+   bf16; unsynchronized matches equal to synchronized ones), then timed at
+   the single-pair shapes beside PIL's host resize of the same images.
 10. Prints one JSON line of per-kernel results (each kernel's launches are
    counted over the phase of 4, 6, 7, 8 or 9 that runs it, plus, for A and
    E, the convergence phase's and, for A-D, the replicas phase's; its bound_ms is the
@@ -279,6 +285,7 @@ KERNEL_INFO = {
     "hcw_refiner_block": ("roma_tpu_torch/csrc/wide_refiner.cu", "graveyard/pallas_hcw_refiner.py:70"),
     "onehot_dot": ("roma_tpu_torch/csrc/onehot_dots.cu", "tools/bench_onehot_dots.py:44"),
     "window_sum": ("roma_tpu_torch/csrc/onehot_dots.cu", "tools/bench_onehot_dots.py:119"),
+    "resize_normalize": ("roma_tpu_torch/csrc/resize.cu", "none: PIL's resize on the host"),
 }
 # Kernel K's two entries, each the port of one TPU kernel body
 ONEHOT_ENTRIES = (("f32", "onehot_dot_f32", "tools/bench_onehot_dots.py:44"),
@@ -298,6 +305,7 @@ def train_launches(cfg, remat: bool) -> dict:
 
 
 FORWARD_ONLY = ("local_correlation", "warp_sample", "fused_refiner_stack")
+RESIZE_CANVASES = ((560, 560), (864, 864))  # Kernel M's: roma_outdoor's coarse and upsample canvases
 SDPA_KERNELS = ("fused_attention", "fused_attention_backward")
 ATTENTION_KERNELS = ("fused_attention_packed", "fused_attention", "fused_attention_backward")
 WINDOW_KERNELS = ("compact_miss", "warp_tiles", "warp_tiles_v1", "fused_refiner_stack_packed")
@@ -1184,7 +1192,7 @@ def check_serving(model, batch1_pairs_per_s: float):
                 pil = [load_image(p) for p in pairs[k]]
                 for got, hw in (((a[0], a[1]), (model.h_resized, model.w_resized)),
                                 ((kw["im_A_high_res"], kw["im_B_high_res"]), model.upsample_res)):
-                    want = model._prep_pair(*pil, hw)
+                    want = model._prep_pair(*pil, [hw])[0]
                     require(all(torch.equal(g[j], w[0]) for g, w in zip(got, want)),
                             f"serve: batch row {j} (pair {k}) is not match()'s preprocessing of its files")
         print(f"serve: batch {SERVE_BATCH}, {len(pairs)} pairs (one corrupt), {len(batches)} batches of "
@@ -1612,6 +1620,53 @@ def check_release(paths, pair, d: str):
           f"{par['device_seconds']:.1f} s; bf16 coarse anchor flip rate "
           f"{report['bf16_drift']['coarse_anchor_flip_rate']}; card {smi_line()}")
     print(f"release phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def check_resize(results):
+    """The resize phase, Kernel M (ops/resize.py): tests/test_torch_resize.py's
+    card tests (M against its plain version on the card over the CPU
+    sweep, both dtypes, bit for bit; match()'s inputs on the single-pair
+    pool's PIL pairs against the PIL path, float32 and bf16, bit for bit;
+    unsynchronized matches against synchronized ones), then M timed at the
+    single-pair traffic's shapes (a pair of 720x960 images to 560^2 and to
+    864^2, bf16) beside its plain version, its bound (bytes) and PIL's host
+    resize of the same images, the work it took off the host."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import test_torch_resize as cases
+
+    from roma_tpu_torch.ops.resize import resize_normalize, resize_normalize_reference
+    from roma_tpu_torch.utils.image import resize
+
+    for dt in (torch.float32, torch.bfloat16):
+        cases.test_kernel_equals_the_plain_path_on_the_card(dt)
+    for amp in (False, True):
+        cases.test_match_inputs_equal_the_pil_path_on_the_card(amp)
+    cases.test_unsynchronized_matches_equal_synchronized_ones()
+    print(f"resize: M bit for bit its plain version over {len(cases.SWEEP)} sizes x {len(cases.CONTENTS)} "
+          "contents (f32, bf16); match()'s inputs bit for bit the PIL path's (f32, bf16); unsynchronized "
+          "matches equal synchronized ones", flush=True)
+    torch.cuda.empty_cache()
+    pair = synthetic_pair(0)
+    x = torch.from_numpy(np.stack([np.asarray(p) for p in pair])).cuda()
+    for hw in RESIZE_CANVASES:
+        out_bytes = x.shape[0] * hw[0] * hw[1] * 3 * 2
+        record(results["resize_normalize"], 0.0,
+               Case("resize_normalize", f"2x720x960 -> {hw[0]}x{hw[1]}",
+                    lambda hw=hw: resize_normalize(x, hw, torch.bfloat16),
+                    lambda hw=hw: resize_normalize_reference(x, hw, torch.bfloat16), bytes=x.numel() + out_bytes))
+    host = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        for hw in RESIZE_CANVASES:
+            for p in pair:
+                np.asarray(resize(p, hw))
+        host.append(1e3 * (time.perf_counter() - t0))
+    host.sort()
+    print(f"resize: PIL on the host, the same 4 resizes (2 images x {len(RESIZE_CANVASES)} canvases): "
+          f"{host[len(host) // 2]:.3f} ms (median of 20)", flush=True)
 
 
 def check_small_match():
@@ -3562,6 +3617,7 @@ def main(argv=None) -> int:
     check_wide_edges()
     check_onehot_kernels(results)
     check_onehot_edges()
+    check_resize(results)
     check_small_match()
 
     t0 = time.perf_counter()
@@ -3594,9 +3650,10 @@ def main(argv=None) -> int:
                 "samples must be (5000, 4) in [-1, 1]")
         require(bool(torch.isfinite(kpts_a).all() and torch.isfinite(kpts_b).all()), "non-finite keypoints")
     launches = read_counts()
-    for name in MATCH_KERNELS:
+    for name in MATCH_KERNELS + ("resize_normalize",):
         results[name]["launches"] = launches[name]
     print(f"kernel launches during the 3 requests: {launches}")
+    require(launches["resize_normalize"] == 2 * len(pairs), "match: M must launch once a canvas a request")
     peak = torch.cuda.max_memory_allocated()
     print("request latency s: " + " ".join(f"{t:.4f}" for t in latencies))
     pairs_per_s = (len(latencies) - 1) / sum(latencies[1:])

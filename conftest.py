@@ -49,6 +49,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: full-dim tests, opt-in via --runslow / ROMA_RUN_SLOW=1"
     )
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA device; each such test skips without one"
+    )
 
 
 def pytest_collection_modifyitems(config, items):

@@ -48,6 +48,7 @@ SIGNATURES = {
     "roma_wide_refiner_block": [P] * 6 + [I] * 7 + [P],
     "roma_onehot_dot": [P, P, P, P, I, I, I, I, I, I, P],
     "roma_window_sum": [P] * 6 + [I] * 7 + [P],
+    "roma_resize_normalize": [P] * 4 + [I] * 11 + [P],
 }
 
 _lib = None

@@ -13,16 +13,48 @@ resolution (the coarse resolution then).
 from __future__ import annotations
 
 import math
+import threading
 from pathlib import Path
 
 import numpy as np
 import torch
 from PIL import Image
 
-from ..ops import balanced_sample, grid_sample, interpolate, normalized_grid, to_normalized_coords, to_pixel_coords
+from ..ops import (balanced_sample, grid_sample, interpolate, normalized_grid, resize_normalize,
+                   to_normalized_coords, to_pixel_coords)
 from ..utils.image import imagenet_normalize, load_image, resize, to_array
 from ..utils.profiling import annotate
 from .matcher import RoMaNet
+
+
+class _PinnedStaging:
+    """A pinned host buffer, reused and grown as needed, through which
+    arrays go to a CUDA device in one asynchronous copy. An event recorded
+    after the copy is waited on before the buffer is written again, so
+    calls with no synchronization between them cannot overwrite a copy in
+    flight; a lock keeps threads off the buffer one at a time."""
+
+    def __init__(self):
+        self._buf, self._copied = None, None
+        self._lock = threading.Lock()
+
+    def to_device(self, arrays, device: torch.device) -> torch.Tensor:
+        """Contiguous uint8 arrays back to back in one flat tensor on
+        ``device``."""
+        n = sum(a.size for a in arrays)
+        with self._lock:
+            if self._copied is not None:
+                self._copied.synchronize()
+            if self._buf is None or self._buf.numel() < n:
+                self._buf = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+            host, at = self._buf.numpy(), 0
+            for a in arrays:
+                host[at:at + a.size] = a.reshape(-1)
+                at += a.size
+            out = self._buf[:n].to(device, non_blocking=True)
+            self._copied = torch.cuda.Event()
+            self._copied.record(torch.cuda.current_stream(device))
+        return out
 
 
 class RegressionMatcher:
@@ -63,6 +95,7 @@ class RegressionMatcher:
         p = next(net.encoder.cnn.parameters())
         self.device, self.dtype = p.device, p.dtype
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._staging = _PinnedStaging()
 
     def get_output_resolution(self) -> tuple[int, int]:
         return self.upsample_res if self.upsample_preds else (self.h_resized, self.w_resized)
@@ -98,9 +131,31 @@ class RegressionMatcher:
         s_warp = torch.cat((b2a, grid), dim=-1)
         return torch.cat((q_warp, s_warp), dim=2), torch.cat(cert.chunk(2), dim=2)
 
-    def _prep_pair(self, pil_A, pil_B, hw):
+    def _prep_pair(self, pil_A, pil_B, hws):
+        """Both images at each (h, w) of ``hws``, ImageNet-normalized in the
+        net's dtype on its device: [(im_A, im_B), ...], each (1, h, w, 3).
+        The bicubic resize is Pillow's, as the reference's: on a CUDA device
+        on the card (``ops.resize_normalize``, Pillow's bytes), each image's
+        pixels copied there once; elsewhere in PIL on the host
+        (:meth:`_resize_on_host`)."""
+        if self.device.type != "cuda":
+            return [self._resize_on_host(pil_A, pil_B, hw) for hw in hws]
+        x_A, x_B = np.asarray(pil_A), np.asarray(pil_B)
+        raw = self._staging.to_device((x_A, x_B), self.device)
+        if x_A.shape == x_B.shape:
+            batches = [raw.view(2, *x_A.shape)]
+        else:
+            batches = [raw[:x_A.size].view(1, *x_A.shape), raw[x_A.size:].view(1, *x_B.shape)]
+        out = []
+        for hw in hws:
+            with annotate("roma.match.resize"):
+                ims = [resize_normalize(x, hw, self.dtype) for x in batches]
+            out.append((ims[0][:1], ims[-1][-1:]))
+        return out
+
+    def _resize_on_host(self, pil_A, pil_B, hw):
         """Bicubic resize on the host (PIL, as the reference); the uint8
-        pixels go to the card, where the [0, 1] scaling and the ImageNet
+        pixels go to the device, where the [0, 1] scaling and the ImageNet
         normalization run."""
         out = []
         for p in (pil_A, pil_B):
@@ -120,8 +175,11 @@ class RegressionMatcher:
               batched: bool = True, gm_logit_bias=None):
         """Dense two-view match -> (warp, certainty).
 
-        Accepts paths / PIL images (resized on the host) or pre-normalized
-        NHWC arrays or tensors at the coarse resolution. Returns the warp,
+        Accepts paths / PIL images or pre-normalized NHWC arrays or
+        tensors at the coarse resolution. PIL inputs are resized with
+        Pillow's bicubic arithmetic: on a CUDA device on the card
+        (``ops.resize_normalize``, bit for bit PIL's bytes), on the CPU with
+        PIL on the host. Returns the warp,
         (x_A, y_A, x_B, y_B) in [-1, 1], and its certainty at
         :meth:`get_output_resolution`: (B, H, 2W, 4) and (B, H, 2W) side by
         side when symmetric, (B, H, W, 4) and (B, H, W) otherwise. A single
@@ -130,9 +188,11 @@ class RegressionMatcher:
         pair's result).
 
         Spans (``utils.profiling``): ``roma.match``; inside it
-        ``roma.match.prep`` (load, ``roma.match.resize`` for each bicubic
-        resize, copy, normalize), ``roma.match.coarse`` and
-        ``roma.match.upsample``, each with its device time.
+        ``roma.match.prep`` (load, copy, ``roma.match.resize`` for each
+        resize: on the card one a size, the host's launch of both images'
+        resize and normalization; on the CPU one an image and size, PIL's
+        resize), ``roma.match.coarse`` and ``roma.match.upsample``, each
+        with its device time.
         """
         with annotate("roma.match"):
             return self._match(im_A_input, im_B_input, im_A_high_res, im_B_high_res, batched, gm_logit_bias)
@@ -173,9 +233,11 @@ class RegressionMatcher:
         # pageable copy waits for the card, so one issued later idles it
         if isinstance(im_A_input, (str, Path, Image.Image)):
             pil_A, pil_B = load_image(im_A_input), load_image(im_B_input)
-            im_A, im_B = self._prep_pair(pil_A, pil_B, (self.h_resized, self.w_resized))
+            hws = [(self.h_resized, self.w_resized)] + ([out_hw] if self.upsample_preds else [])
+            preps = self._prep_pair(pil_A, pil_B, hws)
+            im_A, im_B = preps[0]
             if self.upsample_preds:
-                im_A_u, im_B_u = self._prep_pair(pil_A, pil_B, out_hw)
+                im_A_u, im_B_u = preps[1]
             unbatch = True
         else:
             unbatch = len(im_A_input.shape) == 3

@@ -33,6 +33,7 @@ from .refiner_stack import (
     fused_refiner_stack_packed,
     refiner_stack_reference,
 )
+from .resize import resize_normalize, resize_normalize_reference
 from .sampling import balanced_sample, multinomial_no_replacement
 from .tile_window import WarpSpec, warp_tiles, warp_tiles_reference, warp_tiles_v1, windowed_warp
 from .warp_sample import warp_sample, warp_sample_reference
@@ -43,7 +44,7 @@ from .window_util import compact_miss, compact_miss_reference
 KERNEL_WRAPPERS = (fused_attention_packed, local_correlation, warp_sample, fused_refiner_stack,
                    fused_attention_backward, fused_attention, compact_miss, warp_tiles,
                    warp_tiles_v1, fused_refiner_stack_packed, lane_refiner_block, hcw_refiner_block,
-                   onehot_dot, window_sum)
+                   onehot_dot, window_sum, resize_normalize)
 
 __all__ = [
     "KERNEL_WRAPPERS",
@@ -78,6 +79,8 @@ __all__ = [
     "onehot_dot_f32",
     "onehot_dot_reference",
     "refiner_stack_reference",
+    "resize_normalize",
+    "resize_normalize_reference",
     "sdpa",
     "sdpa_reference",
     "to_normalized_coords",

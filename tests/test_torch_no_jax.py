@@ -38,6 +38,8 @@ from roma_tpu_torch.ops import (
     onehot_dot,
     onehot_dot_reference,
     refiner_stack_reference,
+    resize_normalize,
+    resize_normalize_reference,
     sdpa_reference,
     warp_sample,
     warp_sample_reference,
@@ -209,7 +211,10 @@ def test_cpu_tensors_take_the_plain_versions():
         assert torch.equal(onehot_dot(win, yl, fy, form), onehot_dot_reference(win, yl, fy))
     tab, idx = t(2, 20, 4, 16).bfloat16(), [ri(0, 9, 5), ri(0, 3, 5), ri(0, 2, 5)]
     assert torch.equal(window_sum(tab, *idx, 12, 2), window_sum_reference(tab, *idx, 12, 2))
-    assert [f.launches for f in KERNEL_WRAPPERS] == counts == [0] * 14
+    u8 = torch.from_numpy(rs.randint(0, 256, (2, 9, 11, 3)).astype(np.uint8))
+    for dt in (torch.float32, torch.bfloat16):
+        assert torch.equal(resize_normalize(u8, (7, 13), dt), resize_normalize_reference(u8, (7, 13), dt))
+    assert [f.launches for f in KERNEL_WRAPPERS] == counts == [0] * len(KERNEL_WRAPPERS)
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
