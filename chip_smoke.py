@@ -15,7 +15,10 @@
    folded from (stack_ms, stack_device_ms). Kernel C must give its plain
    version's bits (check_bits, bf16 and f32). In bf16, A, B, C, D and E are
    also held to ULP_BARS, and for B, C and D a planted fault in the plain
-   version must break that bar (check_power). Right after, check_match_edges
+   version must break that bar (check_power). The same checks and times
+   then run at MEGA_SHAPES, A-D as MatchEngine launches them at batch 4 at
+   Mega-1500's 672 -> 1344 canvas, into their own kernels line
+   ("kernels_672to1344"). Right after, check_match_edges
    holds D, B and C off the main path's shapes: D's generic instantiation
    and ragged tiles, B's scalar path, idle lanes and every radius, C's three
    paths at other widths on a rectangular query grid under a flow far off
@@ -23,6 +26,12 @@
 3. Checks the whole match on a small configuration: the kernel path on the
    card against the plain path on the CPU, same weights, float32; once with
    the defaults and once non-symmetric and coarse-only.
+   Then the 672 -> 1344 phase (check_mega_engine): roma_outdoor at
+   Mega-1500's canvas on seeded random weights through MatchEngine at
+   batch 4 over a warm-up batch and 3 timed batches of MegaDepth-size JPEG
+   pairs; every batch must launch 29 A, 5 B, 9 C and 18 D and no other port
+   kernel (those launches are the kernels_672to1344 line's), every result
+   (1344, 2688) and finite; the timed pairs/s and peak memory printed.
 4. Builds roma_outdoor at the released widths on seeded random weights
    (bf16 amp, 560 -> 864, symmetric), answers 3 match requests on seeded
    synthetic image pairs, samples 5000 matches from each, and checks shapes,
@@ -613,9 +622,41 @@ FAULTS = {"fused_refiner_stack": "edge-clamped instead of zero padding",
           "compact_miss": "every rank one too high"}
 
 
-def kernel_cases(gen, dt):
-    """The Cases of Kernels A-D at the main path's shapes, inputs of dtype
-    ``dt`` made on the card from ``gen``."""
+# the main path's kernel shapes, by kernel: the single request's at 560 -> 864
+# (one pair, B = 2 images). A: (label, tokens, heads, n_valid); B: (label,
+# side, C, r); C: (label, side, C); D: (label, side), C = 24, 9 blocks
+MATCH_SHAPES = {
+    "batch": 2,
+    "A": (("dinov2 N1601 16x64", 1601, 16, None), ("decoder N1600 8x128", 1600, 8, None),
+          ("dinov2 N1664 n_valid 1601", 1664, 16, 1601)),
+    "B": (("coarse s16 40^2 C512 r7", 40, 512, 7), ("coarse s8 70^2 C512 r3", 70, 512, 3),
+          ("coarse s4 140^2 C256 r2", 140, 256, 2), ("upsample s8 108^2 C512 r3", 108, 512, 3),
+          ("upsample s4 216^2 C256 r2", 216, 256, 2)),
+    "C": (("coarse s16 40^2 C512", 40, 512), ("coarse s8 70^2 C512", 70, 512), ("coarse s4 140^2 C256", 140, 256),
+          ("coarse s2 280^2 C64", 280, 64), ("coarse s1 560^2 C9", 560, 9), ("upsample s8 108^2 C512", 108, 512),
+          ("upsample s4 216^2 C256", 216, 256), ("upsample s2 432^2 C64", 432, 64),
+          ("upsample s1 864^2 C9", 864, 9)),
+    "D": (("coarse s1 560^2 C24 x9", 560), ("upsample s1 864^2 C24 x9", 864)),
+}
+# Mega-1500's 672 -> 1344 in MatchEngine at batch 4 (B = 8 images): DINOv2 at
+# 48^2 + 1 tokens, the decoder at 48^2, every map of both passes
+MEGA_SHAPES = {
+    "batch": 8,
+    "A": (("dinov2 N2305 16x64", 2305, 16, None), ("decoder N2304 8x128", 2304, 8, None)),
+    "B": (("coarse s16 48^2 C512 r7", 48, 512, 7), ("coarse s8 84^2 C512 r3", 84, 512, 3),
+          ("coarse s4 168^2 C256 r2", 168, 256, 2), ("upsample s8 168^2 C512 r3", 168, 512, 3),
+          ("upsample s4 336^2 C256 r2", 336, 256, 2)),
+    "C": (("coarse s16 48^2 C512", 48, 512), ("coarse s8 84^2 C512", 84, 512), ("coarse s4 168^2 C256", 168, 256),
+          ("coarse s2 336^2 C64", 336, 64), ("coarse s1 672^2 C9", 672, 9), ("upsample s8 168^2 C512", 168, 512),
+          ("upsample s4 336^2 C256", 336, 256), ("upsample s2 672^2 C64", 672, 64),
+          ("upsample s1 1344^2 C9", 1344, 9)),
+    "D": (("coarse s1 672^2 C24 x9", 672), ("upsample s1 1344^2 C24 x9", 1344)),
+}
+
+
+def kernel_cases(gen, dt, shapes=MATCH_SHAPES):
+    """The Cases of Kernels A-D at ``shapes`` (the main path's by default),
+    inputs of dtype ``dt`` made on the card from ``gen``."""
     import torch
 
     from roma_tpu_torch import ops
@@ -623,29 +664,24 @@ def kernel_cases(gen, dt):
 
     rn = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dt)
     es = torch.finfo(dt).bits // 8
+    nb = shapes["batch"]
     out = []
-    # Kernel A: DINOv2 (16 x 64) and TransformerDecoder (8 x 128) at 560^2,
-    # plus the n_valid key mask on a padded sequence
-    for label, n, heads, nv in (("dinov2 N1601 16x64", 1601, 16, None),
-                                ("decoder N1600 8x128", 1600, 8, None),
-                                ("dinov2 N1664 n_valid 1601", 1664, 16, 1601)):
-        qkv = attn_qkv(rn, 2, n, 1024, nv)
-        q, k, v = qkv.view(2, n, 3, heads, 1024 // heads).permute(2, 0, 3, 1, 4)
+    # Kernel A: DINOv2 (16 x 64) and TransformerDecoder (8 x 128), and on
+    # the main path the n_valid key mask on a padded sequence
+    for label, n, heads, nv in shapes["A"]:
+        qkv = attn_qkv(rn, nb, n, 1024, nv)
+        q, k, v = qkv.view(nb, n, 3, heads, 1024 // heads).permute(2, 0, 3, 1, 4)
         out.append(Case("fused_attention_packed", label,
                         lambda q=qkv, h=heads, v=nv: ops.fused_attention_packed(q, h, v),
                         lambda q=qkv, h=heads, v=nv: ops.attention_packed_reference(q, h, v),
-                        rows=nv or n, bytes=2 * n * 4 * 1024 * es, ops=4 * 2 * n * (nv or n) * 1024,
+                        rows=nv or n, bytes=nb * n * 4 * 1024 * es, ops=4 * nb * n * (nv or n) * 1024,
                         peak=PEAK_BF16_TENSOR, library=sdpa_library(q, k, v, nv)))
-    # Kernel B: every local-correlation scale of both passes, B = 2; its dot
+    # Kernel B: every local-correlation scale of both passes; its dot
     # products take f1's dtype (the TPU kernel's MXU operands), the bilinear
     # fold of the (2r + 2)^2 integer taps is f32
-    for label, hw, c, r in (("coarse s16 40^2 C512 r7", 40, 512, 7),
-                            ("coarse s8 70^2 C512 r3", 70, 512, 3),
-                            ("coarse s4 140^2 C256 r2", 140, 256, 2),
-                            ("upsample s8 108^2 C512 r3", 108, 512, 3),
-                            ("upsample s4 216^2 C256 r2", 216, 256, 2)):
-        f0, f1, w = rn(2, hw, hw, c), rn(2, hw, hw, c), smooth_flow(gen, 2, hw, hw)
-        npx = 2 * hw * hw
+    for label, hw, c, r in shapes["B"]:
+        f0, f1, w = rn(nb, hw, hw, c), rn(nb, hw, hw, c), smooth_flow(gen, nb, hw, hw)
+        npx = nb * hw * hw
         out.append(Case("local_correlation", label,
                         lambda a=f0, b=f1, r=r, w=w: ops.local_correlation(a, b, r, w),
                         lambda a=f0, b=f1, r=r, w=w: ops.local_correlation_reference(a, b, r, w),
@@ -653,14 +689,10 @@ def kernel_cases(gen, dt):
                         ops=npx * 2 * c * (2 * r + 2) ** 2, f32_ops=npx * 8 * (2 * r + 1) ** 2,
                         peak=PEAK_BF16_TENSOR if dt == torch.bfloat16 else PEAK_F32,
                         planted=lambda a=f0, b=f1, r=r, w=w: corr_fractions_swapped(a, b, r, w)))
-    # Kernel C: the x_hat lookup at every scale of both passes, B = 2
-    for label, hw, c in (("coarse s16 40^2 C512", 40, 512), ("coarse s8 70^2 C512", 70, 512),
-                         ("coarse s4 140^2 C256", 140, 256), ("coarse s2 280^2 C64", 280, 64),
-                         ("coarse s1 560^2 C9", 560, 9), ("upsample s8 108^2 C512", 108, 512),
-                         ("upsample s4 216^2 C256", 216, 256), ("upsample s2 432^2 C64", 432, 64),
-                         ("upsample s1 864^2 C9", 864, 9)):
-        y, w = rn(2, hw, hw, c), smooth_flow(gen, 2, hw, hw)
-        npx = 2 * hw * hw
+    # Kernel C: the x_hat lookup at every scale of both passes
+    for label, hw, c in shapes["C"]:
+        y, w = rn(nb, hw, hw, c), smooth_flow(gen, nb, hw, hw)
+        npx = nb * hw * hw
         out.append(Case("warp_sample", label,
                         lambda y=y, w=w: ops.warp_sample(y, w),
                         lambda y=y, w=w: ops.warp_sample_reference(y, w),
@@ -674,8 +706,8 @@ def kernel_cases(gen, dt):
     mods = make_modules(24, gen, "cuda")
     with torch.no_grad():
         blocks = ops.fold_refiner(mods[0], mods[1:])
-    for label, hw in (("coarse s1 560^2 C24 x9", 560), ("upsample s1 864^2 C24 x9", 864)):
-        x = rn(2, hw, hw, 24)
+    for label, hw in shapes["D"]:
+        x = rn(nb, hw, hw, 24)
         nbytes, pw_ops, dw_ops = refiner_cost(x, blocks)
         out.append(Case("fused_refiner_stack", label,
                         lambda x=x: ops.fused_refiner_stack(x, blocks),
@@ -774,12 +806,12 @@ def record(r, err, case: Case, dtype: str = "bf16"):
     return ms, pms
 
 
-def check_kernels(results):
+def check_kernels(results, shapes=MATCH_SHAPES):
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dt in (torch.float32, torch.bfloat16):
-        for case in kernel_cases(gen, dt):
+        for case in kernel_cases(gen, dt, shapes):
             rows = case.rows
             ref = case.plain()[:, :rows]
             check = check_bits if case.name in BITWISE else check_output
@@ -1227,6 +1259,86 @@ def check_serving(model, batch1_pairs_per_s: float):
           f"{batch1_pairs_per_s:.4f} pairs/s); host prep of one batch of {SERVE_TIMED_BATCH} alone {prep_s:.4f} s; "
           f"peak device memory {torch.cuda.max_memory_allocated()} bytes; card {smi_line()}", flush=True)
     print(f"serve phase: {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+
+# Mega-1500's 672 -> 1344 through MatchEngine at batch 4, over pairs of
+# MegaDepth's undistorted image sizes (long side 1600) written as JPEG at
+# quality 95. A batch launches A in DINOv2's 24 blocks and the decoder's 5,
+# B at the 5 scales with a local correlation, C at all 9 scales of both
+# passes, and D once a block of the two scale-1 stacks (9 blocks each), and
+# no other port kernel.
+MEGA_RES, MEGA_BATCH, MEGA_BATCHES = (672, 1344), 4, 3
+MEGA_SIZES = ((1066, 1600), (1200, 1600), (1600, 1066), (1600, 1200))
+MEGA_LAUNCHES = {"fused_attention_packed": 29, "local_correlation": 5, "warp_sample": 9, "fused_refiner_stack": 18}
+
+
+def check_mega_engine(mega):
+    """The 672 -> 1344 phase: roma_outdoor at Mega-1500's canvas (exact GELU,
+    bf16 amp, symmetric) on seeded random weights, through
+    MatchEngine(batch_size=4) over MEGA_BATCHES batches of MegaDepth-size
+    JPEG pairs, after one warm-up batch (cuDNN picks its algorithms there).
+    Every batch must launch MEGA_LAUNCHES and no other port kernel; every
+    result is (1344, 2688) and finite, in input order. Prints the timed
+    pairs/s and peak device memory; the launches of all batches go into
+    ``mega``'s rows."""
+    import torch
+
+    from roma_tpu_torch.models.zoo import roma_outdoor
+    from roma_tpu_torch.serving import MatchEngine
+
+    t_phase = time.perf_counter()
+    model = roma_outdoor(device="cuda", seed=0, coarse_res=MEGA_RES[0], upsample_res=MEGA_RES[1],
+                         vit_gelu_tanh=False)
+    counts, match = [], model.match
+
+    def counted(*a, **kw):  # each batch's launches
+        zero_counts()
+        out = match(*a, **kw)
+        counts.append(read_counts())
+        return out
+
+    up = MEGA_RES[1]
+    with tempfile.TemporaryDirectory() as d:
+        pairs = []
+        for k in range(MEGA_BATCH * MEGA_BATCHES):
+            pair = []
+            for im, side in zip(synthetic_pair(200 + k, MEGA_SIZES[k % len(MEGA_SIZES)]), "ab"):
+                pair.append(os.path.join(d, f"{side}{k}.jpg"))
+                im.save(pair[-1], quality=95)
+            pairs.append(tuple(pair))
+        model.match = counted
+        try:
+            engine = MatchEngine(model, batch_size=MEGA_BATCH)
+            t0 = time.perf_counter()
+            list(engine.match_paths(pairs[:MEGA_BATCH]))  # warm-up: cuDNN picks batch 4's algorithms
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            results = list(engine.match_paths(pairs))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            del model.match
+    require([r.index for r in results] == list(range(len(pairs))), "672->1344: results out of order")
+    for r in results:
+        require(tuple(r.warp.shape) == (up, 2 * up, 4) and tuple(r.certainty.shape) == (up, 2 * up),
+                f"672->1344: pair {r.index} warp {tuple(r.warp.shape)}, certainty {tuple(r.certainty.shape)}")
+        require(bool(torch.isfinite(r.warp).all() and torch.isfinite(r.certainty).all()),
+                f"672->1344: pair {r.index} non-finite")
+    want = {n: MEGA_LAUNCHES.get(n, 0) for n in read_counts()}
+    require(len(counts) == 1 + MEGA_BATCHES, f"672->1344: {len(counts)} batches, not 1 + {MEGA_BATCHES}")
+    for i, c in enumerate(counts):
+        require(c == want, f"672->1344: batch {i} launched {c}, not {want}")
+    for name in MATCH_KERNELS:
+        mega[name]["launches"] = sum(c[name] for c in counts)
+    print(f"672->1344: MatchEngine batch {MEGA_BATCH}, warm-up batch {warm:.2f} s, then {len(pairs)} pairs of "
+          f"{len(MEGA_SIZES)} MegaDepth sizes in {wall:.2f} s = {len(pairs) / wall:.4f} pairs/s; launches each of "
+          f"the {len(counts)} batches " + ", ".join(f"{n} {MEGA_LAUNCHES[n]}" for n in MATCH_KERNELS)
+          + f", no other; peak device memory {torch.cuda.max_memory_allocated()} bytes; card {smi_line()}", flush=True)
+    del model, results
+    torch.cuda.empty_cache()
+    print(f"672->1344 phase: {time.perf_counter() - t_phase:.2f} s", flush=True)
 
 
 # the f32 match error is held to EVAL_PX of JAX's: ~50x the measured 2e-5 px,
@@ -1807,6 +1919,15 @@ def new_results() -> dict:
                "_bytes_ms": 0.0, "_ops_ms": 0.0, "_methods": set()}
         for name, (src, rep) in KERNEL_INFO.items()
     }
+
+
+def kernel_rows(results: dict) -> list[dict]:
+    """The rows of a kernels line: each row's bound named by what bounds it
+    and its device times by how they were taken."""
+    for r in results.values():
+        r["bound_by"] = "bytes" if r.pop("_bytes_ms") >= r.pop("_ops_ms") else "operations"
+        r["device_by"] = "+".join(sorted(r.pop("_methods")))
+    return list(results.values())
 
 
 def zero_counts():
@@ -3607,6 +3728,8 @@ def main(argv=None) -> int:
 
     results = new_results()
     check_kernels(results)
+    mega = {k: v for k, v in new_results().items() if k in MATCH_KERNELS}  # 672 -> 1344's launches of A-D
+    check_kernels(mega, MEGA_SHAPES)
     check_match_edges()
     check_attention_kernels(results)
     check_attention_edges()
@@ -3619,6 +3742,7 @@ def main(argv=None) -> int:
     check_onehot_edges()
     check_resize(results)
     check_small_match()
+    check_mega_engine(mega)
 
     t0 = time.perf_counter()
     model = roma_outdoor(device="cuda", seed=0)
@@ -3690,12 +3814,9 @@ def main(argv=None) -> int:
     run_graveyard_path(results)
     missing = [n for n, r in results.items() if r["launches"] == 0]
     require(not missing, f"kernels never launched: {missing}")
-    for r in results.values():
-        r["bound_by"] = "bytes" if r.pop("_bytes_ms") >= r.pop("_ops_ms") else "operations"
-        r["device_by"] = "+".join(sorted(r.pop("_methods")))
-
     torch.cuda.synchronize()
-    print(json.dumps({"kernels": list(results.values())}))
+    print(json.dumps({"kernels": kernel_rows(results)}))
+    print(json.dumps({"kernels_672to1344": kernel_rows(mega)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..utils.profiling import annotate
 from .blocks import checkpointed
 from .config import RoMaConfig
 from .vit import DinoV2
@@ -67,7 +68,10 @@ class CNNandDinov2(nn.Module):
     attention takes Kernel A's forward-only launch. The VGG BatchNorms
     follow the module's train/eval mode. ``remat``: in training the VGG
     pyramid runs under :func:`checkpointed` (roma_tpu/models/encoders.py:86);
-    DINOv2 records no graph, so it has nothing to recompute."""
+    DINOv2 records no graph, so it has nothing to recompute.
+
+    Spans (``utils.profiling``, each with its device time): ``roma.net.vgg``
+    around the pyramid and ``roma.net.dinov2`` around DINOv2."""
 
     def __init__(self, config: RoMaConfig = RoMaConfig(), remat: bool = False):
         super().__init__()
@@ -79,8 +83,10 @@ class CNNandDinov2(nn.Module):
         ).requires_grad_(False)
 
     def forward(self, x: torch.Tensor, upsample: bool = False) -> dict[int, torch.Tensor]:
-        pyramid = checkpointed(self.cnn, x) if self.remat and self.training else self.cnn(x)
+        with annotate("roma.net.vgg", device=True):
+            pyramid = checkpointed(self.cnn, x) if self.remat and self.training else self.cnn(x)
         if not upsample:
-            with torch.no_grad():  # in DINOv2's own dtype (RegressionMatcher's coarse_dtype)
+            # in DINOv2's own dtype (RegressionMatcher's coarse_dtype)
+            with torch.no_grad(), annotate("roma.net.dinov2", device=True):
                 pyramid[16] = self.dinov2(x.to(self.dinov2.cls_token.dtype))
         return pyramid

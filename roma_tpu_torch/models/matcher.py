@@ -30,6 +30,11 @@ the TransformerDecoder, each ConvRefiner and each of its blocks run under
 BatchNorm's running statistics once a step. Kernel A's forward runs again
 for the TransformerDecoder's blocks in the backward.
 
+Spans (``utils.profiling``, each with its device time): in
+``Decoder.forward``, ``roma.net.gm`` around the global match (GP,
+TransformerDecoder, the logit bias, ``cls_to_flow_refine``) and
+``roma.net.refine.s<scale>`` around each ConvRefiner call.
+
 Module names follow the released checkpoint (``decoder.gps.16``,
 ``decoder.proj.{s}.{0,1}``, ``decoder.conv_refiner.{s}.block1``,
 ``hidden_blocks.{j}``, ``out_conv``, ``disp_emb``).
@@ -54,6 +59,7 @@ from ..ops import (
     warp_sample_reference,
 )
 from ..ops.refiner_stack import MAX_C
+from ..utils.profiling import annotate
 from .blocks import checkpointed, nhwc, refiner_block
 from .config import RefinerSpec, RoMaConfig
 from .encoders import CNNandDinov2
@@ -253,19 +259,21 @@ class Decoder(nn.Module):
             f1_s = nhwc(proj, f1[ins].to(dt)).contiguous()
             f2_s = nhwc(proj, f2[ins].to(dt)).contiguous()
             if ins == 16 and not upsample:
-                gp_posterior = self._call(self.gps["16"], f1_s, f2_s)
-                cls_logits, certainty = self._call(self.embedding_decoder, gp_posterior, f1_s)
-                if gm_logit_bias is not None:
-                    cls_logits = cls_logits + gm_logit_bias
-                flow = cls_to_flow_refine(cls_logits)
+                with annotate("roma.net.gm", device=True):
+                    gp_posterior = self._call(self.gps["16"], f1_s, f2_s)
+                    cls_logits, certainty = self._call(self.embedding_decoder, gp_posterior, f1_s)
+                    if gm_logit_bias is not None:
+                        cls_logits = cls_logits + gm_logit_bias
+                    flow = cls_to_flow_refine(cls_logits)
                 if self.training:
                     out.update(gm_cls=cls_logits, gm_certainty=certainty)
             flow = flow.float().contiguous()
             if self.training:
                 out["flow_pre_delta"] = flow
-            delta_flow, delta_certainty = self._call(
-                self.conv_refiner[str(ins)], f1_s, f2_s, flow, scale_factor=scale_factor
-            )
+            with annotate(f"roma.net.refine.s{ins}", device=True):
+                delta_flow, delta_certainty = self._call(
+                    self.conv_refiner[str(ins)], f1_s, f2_s, flow, scale_factor=scale_factor
+                )
             if self.training:
                 out["delta_flow"] = delta_flow
             displacement = ins * torch.stack(

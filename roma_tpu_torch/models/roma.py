@@ -192,7 +192,8 @@ class RegressionMatcher:
         resize: on the card one a size, the host's launch of both images'
         resize and normalization; on the CPU one an image and size, PIL's
         resize), ``roma.match.coarse`` and ``roma.match.upsample``, each
-        with its device time.
+        with its device time and the net's ``roma.net.*`` module spans
+        inside it (``models/encoders.py``, ``models/matcher.py``).
         """
         with annotate("roma.match"):
             return self._match(im_A_input, im_B_input, im_A_high_res, im_B_high_res, batched, gm_logit_bias)

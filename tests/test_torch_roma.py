@@ -63,15 +63,17 @@ def test_coarse_pass_peaked_logits_matches_jax(nets):
     _coarse(nets, render_peaked_bias(4, 4, cls_res=TINY.cls_res), seeds=(5, 6))
 
 
-def test_upsample_pass_matches_jax(nets):
+def _upsample(nets, coarse, up):
+    """The upsample pass on ``up``-sized images from a flow on the ``coarse``
+    grid, its refiners at scale_factor up / 560."""
     variables, net = nets
-    a, b = _imgs(3, 64), _imgs(4, 64)
+    a, b = _imgs(3, up), _imgs(4, up)
     rs = np.random.RandomState(7)
-    gy, gx = np.meshgrid(np.linspace(-1, 1, 56), np.linspace(-1, 1, 56), indexing="ij")
-    flow = (np.stack([gx, gy], -1)[None].repeat(2, 0) * 0.9 + 0.03 * rs.randn(2, 56, 56, 2))
+    gy, gx = np.meshgrid(np.linspace(-1, 1, coarse), np.linspace(-1, 1, coarse), indexing="ij")
+    flow = (np.stack([gx, gy], -1)[None].repeat(2, 0) * 0.9 + 0.03 * rs.randn(2, coarse, coarse, 2))
     flow = flow.astype(np.float32)
-    cert = rs.randn(2, 56, 56, 1).astype(np.float32)
-    sf = 64 / 560
+    cert = rs.randn(2, coarse, coarse, 1).astype(np.float32)
+    sf = up / 560
     jc = JaxNet(config=TINY).apply(
         variables, jnp.asarray(a), jnp.asarray(b), symmetric=True, upsample=True,
         flow=jnp.asarray(flow), certainty=jnp.asarray(cert), scale_factor=sf,
@@ -83,16 +85,40 @@ def test_upsample_pass_matches_jax(nets):
     _compare(jc, tc, (8, 4, 2, 1))
 
 
-def test_match_end_to_end_matches_jax(nets):
+def test_upsample_pass_matches_jax(nets):
+    _upsample(nets, 56, 64)
+
+
+# Mega-1500's 672 -> 1344: the refinement canvas twice the coarse one
+TWICE = pytest.mark.parametrize("coarse, up", [(56, 112), (84, 168)], ids=["56to112", "84to168"])
+
+
+@TWICE
+def test_upsample_pass_at_twice_the_canvas_matches_jax(nets, coarse, up):
+    _upsample(nets, coarse, up)
+
+
+def _match(nets, coarse, up):
+    """The two-pass match of one pair at ``coarse`` -> ``up``, JAX's and the
+    port's; returns the port's matcher and warp and certainty."""
     variables, net = nets
-    a, b = _imgs(8)[0], _imgs(9)[0]
-    jm = JaxMatcher(variables, h=56, w=56, upsample_res=(64, 64), config=TINY)
-    jw, jcert = jm.match(a, b)
-    tm = RegressionMatcher(net, h=56, w=56, upsample_res=(64, 64))
+    a, b = _imgs(8, coarse)[0], _imgs(9, coarse)[0]
+    jw, jcert = JaxMatcher(variables, h=coarse, w=coarse, upsample_res=(up, up), config=TINY).match(a, b)
+    tm = RegressionMatcher(net, h=coarse, w=coarse, upsample_res=(up, up))
     tw, tcert = tm.match(a, b)
-    assert tw.shape == (64, 128, 4) and tcert.shape == (64, 128)
+    assert tw.shape == (up, 2 * up, 4) and tcert.shape == (up, 2 * up)
     np.testing.assert_allclose(tw.numpy(), np.asarray(jw), atol=ATOL)
     np.testing.assert_allclose(tcert.numpy(), np.asarray(jcert), atol=ATOL)
+    return tm, tw, tcert
+
+
+@TWICE
+def test_match_end_to_end_at_twice_the_canvas_matches_jax(nets, coarse, up):
+    _match(nets, coarse, up)
+
+
+def test_match_end_to_end_matches_jax(nets):
+    tm, tw, tcert = _match(nets, 56, 64)
 
     # balanced sampling, by its properties: rows of the warp, reproducible
     # for one generator, certainty thresholded as in the JAX package

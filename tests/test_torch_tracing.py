@@ -139,7 +139,7 @@ def test_match_records_its_stages_as_one_unit(model, images):
     roots = _spans("roma.match")
     assert len(roots) == 1 and roots[0]["parent"] is None
     root = roots[0]
-    by_name = Counter(s["name"] for s in _spans() if not s["name"].startswith("roma.ops."))
+    by_name = Counter(s["name"] for s in _spans() if not s["name"].startswith(("roma.ops.", "roma.net.")))
     assert by_name == {"roma.match": 1, "roma.match.prep": 1, "roma.match.resize": 4, "roma.match.coarse": 1,
                        "roma.match.upsample": 1}
     prep = _spans("roma.match.prep")[0]
@@ -152,6 +152,65 @@ def test_match_records_its_stages_as_one_unit(model, images):
         assert s["device_ms"] is None  # no CUDA event pair on the CPU
     coarse, up = _spans("roma.match.coarse")[0], _spans("roma.match.upsample")[0]
     assert prep["end_ns"] <= coarse["start_ns"] and coarse["end_ns"] <= up["start_ns"]
+
+
+NET_SPANS = {"roma.match.coarse": ["roma.net.vgg", "roma.net.dinov2", "roma.net.gm", "roma.net.refine.s16",
+                                    "roma.net.refine.s8", "roma.net.refine.s4", "roma.net.refine.s2",
+                                    "roma.net.refine.s1"],
+             "roma.match.upsample": ["roma.net.vgg", "roma.net.refine.s8", "roma.net.refine.s4",
+                                     "roma.net.refine.s2", "roma.net.refine.s1"]}
+
+
+def _net_spans_by_pass(passes: list[dict]) -> dict:
+    """The roma.net.* spans directly inside each pass span, in start order,
+    checked to lie inside it and to take its unit; the kernel wrappers'
+    spans of a refiner call inside its refine span."""
+    out = {}
+    for p in passes:
+        mine = [s for s in _spans() if s["name"].startswith("roma.net.") and s["parent"] == p["id"]]
+        assert all(_inside(s, p) and s["unit"] == p["unit"] and s["device_ms"] is None for s in mine)
+        assert all(a["end_ns"] <= b["start_ns"] for a, b in zip(mine, mine[1:]))
+        out[p["id"]] = [s["name"] for s in mine]
+        for r in mine:
+            if r["name"].startswith("roma.net.refine."):
+                ops = [s for s in _spans() if s["parent"] == r["id"]]
+                assert ops and all(s["name"].startswith("roma.ops.") and _inside(s, r) for s in ops)
+    return out
+
+
+def test_match_records_the_net_modules_inside_each_pass(model, images):
+    """VGG in both passes, DINOv2 and the global match in the coarse one,
+    a refine span a scale; no other roma.net.* span anywhere."""
+    assert profiling.annotate("roma.net.vgg", device=True) is profiling.annotate("roma.net.gm", device=True)
+    with _capture():
+        model.match(*images)
+    for name, want in NET_SPANS.items():
+        (p,) = _spans(name)
+        assert _net_spans_by_pass([p])[p["id"]] == want
+    assert sum(s["name"].startswith("roma.net.") for s in _spans()) == sum(map(len, NET_SPANS.values()))
+
+
+def test_engine_records_the_net_modules_under_each_batch(model, images, tmp_path):
+    """In MatchEngine each batch's module spans nest in its match's passes,
+    under ``roma.engine.dispatch``, and take the batch's unit."""
+    paths = []
+    for i, im in enumerate(images):
+        paths.append(str(tmp_path / f"{i}.png"))
+        im.save(paths[-1])
+    with _capture():
+        list(MatchEngine(model, batch_size=2).match_paths([tuple(paths)] * 3))
+    dispatch = {s["unit"]: s for s in _spans("roma.engine.dispatch")}
+    matches = {s["id"]: s for s in _spans("roma.match")}
+    assert len(dispatch) == len(matches) == 2
+    for name, want in NET_SPANS.items():
+        passes = _spans(name)
+        assert len(passes) == 2
+        for p in passes:
+            m = matches[p["parent"]]
+            assert m["parent"] == dispatch[p["unit"]]["id"] and m["unit"] == p["unit"]
+        assert all(got == want for got in _net_spans_by_pass(passes).values())
+    net = [s for s in _spans() if s["name"].startswith("roma.net.")]
+    assert len(net) == 2 * sum(map(len, NET_SPANS.values())) and {s["unit"] for s in net} == set(dispatch)
 
 
 def test_each_kernel_wrapper_span_counts_its_calls(model, images):
