@@ -12,11 +12,13 @@
    also get a device time: calls captured in a CUDA graph and replayed
    between one pair of events (device_ms; see device_ms()). Kernel D is
    timed beside the model's eager cuDNN stack on the modules its blocks are
-   folded from (stack_ms, stack_device_ms). Kernel C must give its plain
-   version's bits (check_bits, bf16 and f32). In bf16, A, B, C, D and E are
-   also held to ULP_BARS, and for B, C and D a planted fault in the plain
-   version must break that bar (check_power). The same checks and times
-   then run at MEGA_SHAPES, A-D as MatchEngine launches them at batch 4 at
+   folded from (stack_ms, stack_device_ms), and Kernel N, the depthwise
+   half of each wide stack's blocks, beside the cuDNN depthwise, BatchNorm
+   and ReLU modules it replaced. Kernel C must give its plain
+   version's bits (check_bits, bf16 and f32). In bf16, A, B, C, D, E and N
+   are also held to ULP_BARS, and for B, C, D and N a planted fault in the
+   plain version must break that bar (check_power). The same checks and times
+   then run at MEGA_SHAPES, A-D and N as MatchEngine launches them at batch 4 at
    Mega-1500's 672 -> 1344 canvas, into their own kernels line
    ("kernels_672to1344"). Right after, check_match_edges
    holds D, B and C off the main path's shapes: D's generic instantiation
@@ -29,20 +31,22 @@
    Then the 672 -> 1344 phase (check_mega_engine): roma_outdoor at
    Mega-1500's canvas on seeded random weights through MatchEngine at
    batch 4 over a warm-up batch and 3 timed batches of MegaDepth-size JPEG
-   pairs; every batch must launch 29 A, 5 B, 9 C and 18 D and no other port
-   kernel (those launches are the kernels_672to1344 line's), every result
+   pairs; every batch must launch 29 A, 5 B, 9 C, 18 D and 63 N and no other
+   port kernel (those launches are the kernels_672to1344 line's), every result
    (1344, 2688) and finite; the timed pairs/s and peak memory printed.
 4. Builds roma_outdoor at the released widths on seeded random weights
    (bf16 amp, 560 -> 864, symmetric), answers 3 match requests on seeded
    synthetic image pairs, samples 5000 matches from each, and checks shapes,
    finiteness, sample range and that every kernel of the match launched
-   (M once a canvas a request).
+   (M once a canvas a request, N 63 times a request: once a block of the
+   wide stacks, scales 16-2 of both passes).
    Then the int8 phase (check_int8): int8_matmul on the card against the
    same call on the CPU bit for bit at INT8_SHAPES (the ViT's proj, fc1 and
    fc2 at 2 x 1601 tokens, each refiner width at 4 rows; bf16 and f32),
    one activation rounded the other way breaking each; roma_outdoor(
    vit_int8=True, refiner_int8=True) on the same seeded weights, 3 requests:
-   shapes, finiteness, A-D launched and int8_products_per_request (135)
+   shapes, finiteness, A-D launched (N not: the int8 stacks keep their
+   modules) and int8_products_per_request (135)
    int8 products in each; its per-scale flow drift from the bf16 model
    (p50, p99, coarse anchor flip rate) and tools/int8_drift.py at full dims,
    printed; its pairs/s, latency and peak memory beside the bf16 model's,
@@ -272,10 +276,13 @@ J_ULPS = 4
 # only f32 summation orders differ.
 I_ULPS = 4
 H_ULPS = 4
+# Kernel N rounds once, where its plain version rounds, after an f32 sum of
+# 25 taps and the bias in another order: one ulp of the largest value.
+N_ULPS = 1
 ULP_BARS = {"fused_attention_packed": ATTN_ULPS, "fused_attention": ATTN_ULPS,
             "fused_attention_backward": ATTN_ULPS, "fused_refiner_stack": D_ULPS, "local_correlation": B_ULPS,
             "warp_sample": C_ULPS, "hcw_refiner_block": J_ULPS, "lane_refiner_block": I_ULPS,
-            "fused_refiner_stack_packed": H_ULPS}
+            "fused_refiner_stack_packed": H_ULPS, "depthwise_bn_relu": N_ULPS}
 # the kernels of kernel_cases held to their plain version bit for bit
 BITWISE = ("warp_sample",)
 
@@ -295,6 +302,7 @@ KERNEL_INFO = {
     "onehot_dot": ("roma_tpu_torch/csrc/onehot_dots.cu", "tools/bench_onehot_dots.py:44"),
     "window_sum": ("roma_tpu_torch/csrc/onehot_dots.cu", "tools/bench_onehot_dots.py:119"),
     "resize_normalize": ("roma_tpu_torch/csrc/resize.cu", "none: PIL's resize on the host"),
+    "depthwise_bn_relu": ("roma_tpu_torch/csrc/depthwise.cu", "none: cuDNN's depthwise, BatchNorm and ReLU passes"),
 }
 # Kernel K's two entries, each the port of one TPU kernel body
 ONEHOT_ENTRIES = (("f32", "onehot_dot_f32", "tools/bench_onehot_dots.py:44"),
@@ -302,6 +310,10 @@ ONEHOT_ENTRIES = (("f32", "onehot_dot_f32", "tools/bench_onehot_dots.py:44"),
 # the kernels each driven phase must launch; the training step must launch
 # none of the forward-only ones
 MATCH_KERNELS = ("fused_attention_packed", "local_correlation", "warp_sample", "fused_refiner_stack")
+# Kernel N, the depthwise half of every block of the wide stacks (scales
+# 16-2) in inference: 4 stacks of 9 blocks in the coarse pass and 3 in the
+# upsample pass, a request or an engine batch; none on the int8 stacks
+WIDE_KERNEL, WIDE_LAUNCHES = "depthwise_bn_relu", 63
 TRAIN_KERNELS = ("fused_attention_packed", "fused_attention_backward")
 
 
@@ -313,7 +325,7 @@ def train_launches(cfg, remat: bool) -> dict:
             "fused_attention_backward": cfg.decoder_depth}
 
 
-FORWARD_ONLY = ("local_correlation", "warp_sample", "fused_refiner_stack")
+FORWARD_ONLY = ("local_correlation", "warp_sample", "fused_refiner_stack", WIDE_KERNEL)
 RESIZE_CANVASES = ((560, 560), (864, 864))  # Kernel M's: roma_outdoor's coarse and upsample canvases
 SDPA_KERNELS = ("fused_attention", "fused_attention_backward")
 ATTENTION_KERNELS = ("fused_attention_packed", "fused_attention", "fused_attention_backward")
@@ -324,6 +336,7 @@ GRAVEYARD_KERNELS = ("lane_refiner_block", "hcw_refiner_block", "onehot_dot", "w
 # once, each output written once) over the memory rate and its operations
 # over the peak for their type (H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
+KSIZE_N = 5  # Kernel N's depthwise size
 PEAK_BF16_TENSOR = 989e12  # bf16 x bf16 products: attention, B's dot products in bf16
 PEAK_F32 = 67e12  # CUDA cores: the rest (D and H's pointwise in f32 I/O; F's int ops; I and J's f32
 # product and every depthwise)
@@ -552,6 +565,16 @@ def refiner_edge_clamped(x, blocks, round_w2=False):
     return y.permute(0, 2, 3, 1)
 
 
+def depthwise_tap_dropped(x, dw, db):
+    """depthwise_bn_relu_reference with one planted fault: the centre tap's
+    weight left out."""
+    from roma_tpu_torch.ops import depthwise_bn_relu_reference
+
+    dw = dw.clone()
+    dw[dw.shape[0] // 2, dw.shape[1] // 2] = 0
+    return depthwise_bn_relu_reference(x, dw, db)
+
+
 def warp_fractions_swapped(y, flow):
     """warp_sample_reference with one planted fault: the bilinear weights
     take fx for fy and fy for fx."""
@@ -619,7 +642,8 @@ FAULTS = {"fused_refiner_stack": "edge-clamped instead of zero padding",
           "fused_refiner_stack_packed": "edge-clamped instead of zero padding",
           "onehot_dot": "weights fy and 1 - fy swapped",
           "window_sum": "each window shifted down one table row",
-          "compact_miss": "every rank one too high"}
+          "compact_miss": "every rank one too high",
+          "depthwise_bn_relu": "the centre tap dropped"}
 
 
 # the main path's kernel shapes, by kernel: the single request's at 560 -> 864
@@ -637,6 +661,9 @@ MATCH_SHAPES = {
           ("upsample s4 216^2 C256", 216, 256), ("upsample s2 432^2 C64", 432, 64),
           ("upsample s1 864^2 C9", 864, 9)),
     "D": (("coarse s1 560^2 C24 x9", 560), ("upsample s1 864^2 C24 x9", 864)),
+    "N": (("coarse s16 35^2 C1377", 35, 1377), ("coarse s8 70^2 C1137", 70, 1137), ("coarse s4 140^2 C569", 140, 569),
+          ("coarse s2 280^2 C144", 280, 144), ("upsample s8 108^2 C1137", 108, 1137),
+          ("upsample s4 216^2 C569", 216, 569), ("upsample s2 432^2 C144", 432, 144)),
 }
 # Mega-1500's 672 -> 1344 in MatchEngine at batch 4 (B = 8 images): DINOv2 at
 # 48^2 + 1 tokens, the decoder at 48^2, every map of both passes
@@ -651,11 +678,14 @@ MEGA_SHAPES = {
           ("upsample s4 336^2 C256", 336, 256), ("upsample s2 672^2 C64", 672, 64),
           ("upsample s1 1344^2 C9", 1344, 9)),
     "D": (("coarse s1 672^2 C24 x9", 672), ("upsample s1 1344^2 C24 x9", 1344)),
+    "N": (("coarse s16 42^2 C1377", 42, 1377), ("coarse s8 84^2 C1137", 84, 1137), ("coarse s4 168^2 C569", 168, 569),
+          ("coarse s2 336^2 C144", 336, 144), ("upsample s8 168^2 C1137", 168, 1137),
+          ("upsample s4 336^2 C569", 336, 569), ("upsample s2 672^2 C144", 672, 144)),
 }
 
 
 def kernel_cases(gen, dt, shapes=MATCH_SHAPES):
-    """The Cases of Kernels A-D at ``shapes`` (the main path's by default),
+    """The Cases of Kernels A-D and N at ``shapes`` (the main path's by default),
     inputs of dtype ``dt`` made on the card from ``gen``."""
     import torch
 
@@ -715,6 +745,23 @@ def kernel_cases(gen, dt, shapes=MATCH_SHAPES):
                         peak=PEAK_BF16_TENSOR if dt == torch.bfloat16 else PEAK_F32, f32_ops=dw_ops,
                         stack=(lambda x=x: model_stack(x, mods)) if dt == torch.bfloat16 else None,
                         planted=lambda x=x: refiner_edge_clamped(x, blocks)))
+    # Kernel N: the depthwise half of one block of each wide stack, on the
+    # stack's channels padded to C_ALIGN (zero), folded from an eval-mode
+    # refiner_block, beside those modules' cuDNN depthwise, BatchNorm and
+    # ReLU as the match ran them before (bf16 modules on the unpadded map)
+    for label, hw, c in shapes["N"]:
+        block = make_modules(c, gen, "cuda", n=1)[0]
+        with torch.no_grad():
+            p = ops.depthwise.padded_block(ops.fold_refiner(block, [])[0], ops.padded_width(c), dt)
+        x = torch.nn.functional.pad(rn(nb, hw, hw, c), (0, ops.padded_width(c) - c))
+        xs = x[..., :c].contiguous()
+        out.append(Case("depthwise_bn_relu", label,
+                        lambda x=x, p=p: ops.depthwise_bn_relu(x, p["dw"], p["db"]),
+                        lambda x=x, p=p: ops.depthwise_bn_relu_reference(x, p["dw"], p["db"]),
+                        bytes=2 * x.numel() * es + 4 * p["dw"].numel() + 4 * p["db"].numel(),
+                        f32_ops=2 * KSIZE_N**2 * x.numel(),
+                        stack=(lambda xs=xs, m=block[:3]: model_stack(xs, [m])) if dt == torch.bfloat16 else None,
+                        planted=lambda x=x, p=p: depthwise_tap_dropped(x, p["dw"], p["db"])))
     return out
 
 
@@ -1265,11 +1312,12 @@ def check_serving(model, batch1_pairs_per_s: float):
 # MegaDepth's undistorted image sizes (long side 1600) written as JPEG at
 # quality 95. A batch launches A in DINOv2's 24 blocks and the decoder's 5,
 # B at the 5 scales with a local correlation, C at all 9 scales of both
-# passes, and D once a block of the two scale-1 stacks (9 blocks each), and
-# no other port kernel.
+# passes, D once a block of the two scale-1 stacks (9 blocks each), N once a
+# block of the seven wide stacks (9 blocks each), and no other port kernel.
 MEGA_RES, MEGA_BATCH, MEGA_BATCHES = (672, 1344), 4, 3
 MEGA_SIZES = ((1066, 1600), (1200, 1600), (1600, 1066), (1600, 1200))
-MEGA_LAUNCHES = {"fused_attention_packed": 29, "local_correlation": 5, "warp_sample": 9, "fused_refiner_stack": 18}
+MEGA_LAUNCHES = {"fused_attention_packed": 29, "local_correlation": 5, "warp_sample": 9, "fused_refiner_stack": 18,
+                 WIDE_KERNEL: WIDE_LAUNCHES}
 
 
 def check_mega_engine(mega):
@@ -1330,11 +1378,11 @@ def check_mega_engine(mega):
     require(len(counts) == 1 + MEGA_BATCHES, f"672->1344: {len(counts)} batches, not 1 + {MEGA_BATCHES}")
     for i, c in enumerate(counts):
         require(c == want, f"672->1344: batch {i} launched {c}, not {want}")
-    for name in MATCH_KERNELS:
+    for name in MEGA_LAUNCHES:
         mega[name]["launches"] = sum(c[name] for c in counts)
     print(f"672->1344: MatchEngine batch {MEGA_BATCH}, warm-up batch {warm:.2f} s, then {len(pairs)} pairs of "
           f"{len(MEGA_SIZES)} MegaDepth sizes in {wall:.2f} s = {len(pairs) / wall:.4f} pairs/s; launches each of "
-          f"the {len(counts)} batches " + ", ".join(f"{n} {MEGA_LAUNCHES[n]}" for n in MATCH_KERNELS)
+          f"the {len(counts)} batches " + ", ".join(f"{n} {k}" for n, k in MEGA_LAUNCHES.items())
           + f", no other; peak device memory {torch.cuda.max_memory_allocated()} bytes; card {smi_line()}", flush=True)
     del model, results
     torch.cuda.empty_cache()
@@ -1661,6 +1709,7 @@ def check_int8(bf16_model, pairs, bf16_stats: dict, d: str):
         require(tuple(matches.shape) == (5000, 4) and matches.abs().max().item() <= 1.0, "int8: samples")
         missing = [n for n in MATCH_KERNELS if launches[n] == 0]
         require(not missing, f"int8 request: kernels not launched {missing}")
+        require(launches[WIDE_KERNEL] == 0, "int8 request: the int8 stacks must keep their modules, not Kernel N")
         require(int8_product.launches == expected,
                 f"int8 request: {int8_product.launches} int8 products, expected {expected}")
     peak = torch.cuda.max_memory_allocated()
@@ -1873,7 +1922,7 @@ def synthetic_train_batch(b: int, hw, seed: int, device, normalize: bool = True)
 PORT_KERNEL_NAMES = (("attn_fwd", "A"), ("attn_bwd", "E"), ("local_corr", "B"), ("warp_vec", "C"),
                      ("warp_reg", "C"), ("warp_scalar", "C"), ("refiner_block", "D"), ("refiner_chain", "H"),
                      ("window_warp", "G"), ("compact_miss", "F"), ("wide_block", "I/J"), ("hcw_tc", "J"),
-                     ("onehot_dot", "K"), ("window_sum", "L"))
+                     ("onehot_dot", "K"), ("window_sum", "L"), ("dw_bn_relu", "N"))
 
 
 def traced(what: str, fn, top: int = 12):
@@ -3728,7 +3777,7 @@ def main(argv=None) -> int:
 
     results = new_results()
     check_kernels(results)
-    mega = {k: v for k, v in new_results().items() if k in MATCH_KERNELS}  # 672 -> 1344's launches of A-D
+    mega = {k: v for k, v in new_results().items() if k in MEGA_LAUNCHES}  # 672 -> 1344's launches of A-D, N
     check_kernels(mega, MEGA_SHAPES)
     check_match_edges()
     check_attention_kernels(results)
@@ -3774,10 +3823,12 @@ def main(argv=None) -> int:
                 "samples must be (5000, 4) in [-1, 1]")
         require(bool(torch.isfinite(kpts_a).all() and torch.isfinite(kpts_b).all()), "non-finite keypoints")
     launches = read_counts()
-    for name in MATCH_KERNELS + ("resize_normalize",):
+    for name in MATCH_KERNELS + ("resize_normalize", WIDE_KERNEL):
         results[name]["launches"] = launches[name]
     print(f"kernel launches during the 3 requests: {launches}")
     require(launches["resize_normalize"] == 2 * len(pairs), "match: M must launch once a canvas a request")
+    require(launches[WIDE_KERNEL] == WIDE_LAUNCHES * len(pairs),
+            f"match: N must launch {WIDE_LAUNCHES} times a request, once a block of the wide stacks")
     peak = torch.cuda.max_memory_allocated()
     print("request latency s: " + " ".join(f"{t:.4f}" for t in latencies))
     pairs_per_s = (len(latencies) - 1) / sum(latencies[1:])

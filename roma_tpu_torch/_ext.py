@@ -49,6 +49,7 @@ SIGNATURES = {
     "roma_onehot_dot": [P, P, P, P, I, I, I, I, I, I, P],
     "roma_window_sum": [P] * 6 + [I] * 7 + [P],
     "roma_resize_normalize": [P] * 4 + [I] * 11 + [P],
+    "roma_depthwise_bn_relu": [P] * 4 + [I] * 5 + [P],
 }
 
 _lib = None

@@ -6,14 +6,17 @@ roma_tpu/models/matcher.py), NHWC at every public boundary.
   * ``TransformerDecoder``: pre-norm ViT blocks over cat(GP posterior,
     features), a linear head to cls_res^2 + 1 anchor logits and certainty.
   * ``ConvRefiner``: x_hat lookup (Kernel C), displacement embedding, local
-    correlation (Kernel B), depthwise 5x5 blocks (Kernel D when the stack is
-    at most 32 wide, PyTorch's convs otherwise), float32 out_conv. In
-    training mode the three kernels give way to their plain versions, as
-    the JAX package's ``inference=not self.train`` does: they are
-    forward-only. ``refiner_int8`` puts the blocks' 1x1 convs of the wider
-    stacks (scales 16-2) on dynamic int8 outside training
-    (:class:`~.blocks.QConv1x1`); the scale-1 stack stays on Kernel D, as
-    the JAX package's fused path ignores ``int8``.
+    correlation (Kernel B), depthwise 5x5 blocks, float32 out_conv. In
+    inference the blocks run folded: on Kernel D when the stack is at most
+    32 wide, else as Kernel N and one GEMM a block on the stack's channels
+    padded once to a multiple of 8 (:func:`~roma_tpu_torch.ops.wide_stack`).
+    In training mode the kernels give way to their plain versions and the
+    blocks run as modules, as the JAX package's ``inference=not
+    self.train`` does: the kernels are forward-only. ``refiner_int8`` puts
+    the blocks' 1x1 convs of the wider stacks (scales 16-2) on dynamic int8
+    outside training (:class:`~.blocks.QConv1x1`), where the blocks run as
+    modules; the scale-1 stack stays on Kernel D, as the JAX package's fused
+    path ignores ``int8``.
   * ``Decoder``: the scale loop, 16 -> 1, or 8 -> 1 in the upsample pass; in
     training mode it also returns the anchor logits ``gm_cls``, their
     certainty ``gm_certainty``, ``flow_pre_delta`` and ``delta_flow``, which
@@ -58,9 +61,10 @@ from ..ops import (
     warp_sample,
     warp_sample_reference,
 )
+from ..ops.depthwise import padded_block, padded_width, wide_stack
 from ..ops.refiner_stack import MAX_C
 from ..utils.profiling import annotate
-from .blocks import checkpointed, nhwc, refiner_block
+from .blocks import QConv1x1, checkpointed, nhwc, refiner_block
 from .config import RefinerSpec, RoMaConfig
 from .encoders import CNNandDinov2
 from .vit import Block
@@ -147,22 +151,37 @@ class ConvRefiner(nn.Module):
         )
         self.out_conv = nn.Conv2d(spec.hidden_dim, 3, 1)
         self.disp_emb = nn.Conv2d(2, spec.disp_emb_dim, 1)
-        self._folded = (None, None)  # (key, folded blocks) for Kernel D
+        self._folded = (None, None)  # (key, folded blocks) for Kernels D and N
 
-    def folded_blocks(self) -> list[dict]:
-        """The blocks folded for Kernel D (fold_refiner), folded again only
-        when a source tensor changed: the cache is keyed on each parameter's
-        and running statistic's (data_ptr, _version, dtype), so copy_,
-        load_state_dict, a training step and set_precision all refold. The
-        fold runs outside inference mode, since match() runs under
-        torch.inference_mode and an inference tensor could not be used later
-        where autograd is on."""
+    def folded_blocks(self, dtype: torch.dtype | None = None) -> list[dict]:
+        """The blocks folded for Kernel D (fold_refiner) or, given the I/O
+        ``dtype``, as Kernel N and the GEMM take them (padded_block of each
+        fold; the fold is not kept, as its float32 C x C weights would
+        outweigh the stack's own), folded again only when a source tensor or
+        the dtype changed: the cache is keyed on each parameter's and running
+        statistic's (data_ptr, _version, dtype), so copy_, load_state_dict, a
+        training step and set_precision all refold. The fold runs outside
+        inference mode, since match() runs under torch.inference_mode and an
+        inference tensor could not be used later where autograd is on."""
         srcs = [t for seq in (self.block1, *self.hidden_blocks) for t in (*seq.parameters(), *seq.buffers())]
-        key = tuple((t.data_ptr(), t._version, t.dtype) for t in srcs)
+        key = (tuple((t.data_ptr(), t._version, t.dtype) for t in srcs), dtype)
         if self._folded[0] != key:
             with torch.inference_mode(False), torch.no_grad():
-                self._folded = (key, fold_refiner(self.block1, self.hidden_blocks))
+                if dtype is None:
+                    blocks = fold_refiner(self.block1, self.hidden_blocks)
+                else:
+                    cp = padded_width(self.spec.hidden_dim)
+                    blocks = [padded_block(fold_refiner(seq, [])[0], cp, dtype)
+                              for seq in (self.block1, *self.hidden_blocks)]
+                self._folded = (key, blocks)
         return self._folded[1]
+
+    def _on_wide_stack(self) -> bool:
+        """Whether the blocks run as :func:`~roma_tpu_torch.ops.wide_stack`:
+        in inference, on a stack wider than Kernel D's MAX_C whose 1x1 convs
+        are float (an int8 stack keeps its modules)."""
+        return (not self.training and self.spec.hidden_dim > MAX_C
+                and not isinstance(self.block1[3], QConv1x1))
 
     def forward(self, x, y, flow, scale_factor: float = 1.0):
         """x, y: (B, H, W, C) projected A/B features; flow (B, H, W, 2)
@@ -185,9 +204,14 @@ class ConvRefiner(nn.Module):
             else:
                 corr = local_correlation(x, y, s.local_corr_radius, flow)
             parts.append(corr.to(dt))
+        wide = self._on_wide_stack()
+        if wide and padded_width(s.hidden_dim) > s.hidden_dim:  # zero channels up to Kernel N's alignment
+            parts.append(emb.new_zeros(()).expand(b, hs, ws, padded_width(s.hidden_dim) - s.hidden_dim))
         d = torch.cat(parts, dim=-1)
         if not self.training and s.hidden_dim <= MAX_C:
             d = fused_refiner_stack(d, self.folded_blocks())
+        elif wide:
+            d = wide_stack(d, self.folded_blocks(d.dtype))[..., :s.hidden_dim]
         elif self.remat and self.training:
             d = d.permute(0, 3, 1, 2)
             for blk in (self.block1, *self.hidden_blocks):

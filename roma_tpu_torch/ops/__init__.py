@@ -7,6 +7,7 @@ from .coords import (
     to_pixel_coords,
     warp_to_pixel_coords,
 )
+from .depthwise import depthwise_bn_relu, depthwise_bn_relu_reference, padded_width, wide_stack
 from .fused_attention import (
     attention_backward_reference,
     attention_packed_reference,
@@ -44,7 +45,7 @@ from .window_util import compact_miss, compact_miss_reference
 KERNEL_WRAPPERS = (fused_attention_packed, local_correlation, warp_sample, fused_refiner_stack,
                    fused_attention_backward, fused_attention, compact_miss, warp_tiles,
                    warp_tiles_v1, fused_refiner_stack_packed, lane_refiner_block, hcw_refiner_block,
-                   onehot_dot, window_sum, resize_normalize)
+                   onehot_dot, window_sum, resize_normalize, depthwise_bn_relu)
 
 __all__ = [
     "KERNEL_WRAPPERS",
@@ -58,6 +59,8 @@ __all__ = [
     "compact_miss",
     "compact_miss_reference",
     "corr_volume",
+    "depthwise_bn_relu",
+    "depthwise_bn_relu_reference",
     "fold_block",
     "fold_refiner",
     "fused_attention",
@@ -78,6 +81,7 @@ __all__ = [
     "onehot_dot_2bf16",
     "onehot_dot_f32",
     "onehot_dot_reference",
+    "padded_width",
     "refiner_stack_reference",
     "resize_normalize",
     "resize_normalize_reference",
@@ -92,6 +96,7 @@ __all__ = [
     "warp_tiles_v1",
     "warp_to_pixel_coords",
     "wide_refiner_stack_reference",
+    "wide_stack",
     "window_sum",
     "window_sum_reference",
     "windowed_warp",

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from .. import _ext
 from ..utils.profiling import spanned
+from .depthwise import depthwise_bn_relu_reference
 
 BN_EPS = 1e-5
 MAX_C = 32  # widest stack the kernel takes; the routing bound in models/matcher.py
@@ -64,13 +65,9 @@ def refiner_stack_reference(x: torch.Tensor, blocks: list[dict], round_w2: bool 
     wide-C kernels and roma_tpu/ops/pallas_refiner.py:refiner_stack_reference
     do; Kernels D and H keep them in float32."""
     dt = x.dtype
-    c = x.shape[-1]
     y = x.permute(0, 3, 1, 2)
     for blk in blocks:
-        k = blk["dw"].shape[0]
-        wdw = blk["dw"].permute(2, 0, 1)[:, None]  # (C, 1, K, K)
-        t = F.conv2d(y.float(), wdw, blk["db"], padding=k // 2, groups=c)
-        t = torch.relu(t).to(dt).float()
+        t = depthwise_bn_relu_reference(y.permute(0, 2, 3, 1), blk["dw"], blk["db"]).permute(0, 3, 1, 2).float()
         w2 = blk["w2"].to(dt).float() if round_w2 else blk["w2"]
         y = F.conv2d(t, w2.T[:, :, None, None], blk["b2"]).to(dt)
     return y.permute(0, 2, 3, 1)

@@ -83,8 +83,8 @@ def test_ptxas_report_sits_beside_the_library():
 
 
 def _planted_cases():
-    """(name, plain output, planted-fault output) of Kernels D, B, C, J, I
-    and H at a small shape in bf16, on the CPU, drawn as chip_smoke.py draws
+    """(name, plain output, planted-fault output) of Kernels D, B, C, J, I,
+    H and N at a small shape in bf16, on the CPU, drawn as chip_smoke.py draws
     them: copies of the cases, which are built once a process."""
     return [(name, ref.clone(), wrong.clone()) for name, ref, wrong in _planted_cases_once()]
 
@@ -118,10 +118,14 @@ def _planted_cases_once():
     x = rn(2, 21, 19, 24)
     out.append(("fused_refiner_stack_packed", ops.refiner_stack_reference(x, blocks),
                 chip_smoke.refiner_edge_clamped(x, blocks)))
+    blk = chip_smoke.refiner_blocks(gen, 48, 1, device="cpu")[0]
+    x = rn(2, 13, 11, 48)
+    out.append(("depthwise_bn_relu", ops.depthwise_bn_relu_reference(x, blk["dw"], blk["db"]),
+                chip_smoke.depthwise_tap_dropped(x, blk["dw"], blk["db"])))
     return out
 
 
-@pytest.mark.parametrize("i", range(8))
+@pytest.mark.parametrize("i", range(9))
 def test_planted_faults_break_the_ulp_bar(i, capsys):
     name, ref, wrong = _planted_cases()[i]
     chip_smoke.check_power(name, "cpu", "", ref, wrong, chip_smoke.FAULTS[name])
