@@ -6,7 +6,7 @@ A thread pool decodes (PIL and h5py release the GIL) and a small queue keeps
 batches ready while the card runs a step. Each rank takes the slice
 ``indices[rank::world_size]`` of one index stream that every rank draws from
 the same seed. :func:`to_device` moves a numpy batch to the card through
-pinned memory.
+the one staging helper (``utils.staging``).
 """
 from __future__ import annotations
 
@@ -16,11 +16,12 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
 import numpy as np
-import torch
 
 from ..utils.profiling import annotate
+from ..utils.staging import PinnedStaging
 
 BATCH_KEYS = ("im_A", "im_B", "im_A_depth", "im_B_depth", "K1", "K2", "T_1to2")
+_STAGING = PinnedStaging()  # to_device's: one pinned buffer for the process
 
 
 def weighted_sample_indices(
@@ -109,14 +110,9 @@ class DataLoader:
 
 
 def to_device(batch: dict, device) -> dict:
-    """A numpy batch as tensors on ``device``: on a CUDA device each array is
-    copied into pinned host memory and sent with ``non_blocking=True``, so
-    the copy overlaps the host's next work; the card's stream orders it
-    before any kernel that reads it. Span: ``roma.loader.to_device``."""
-    device = torch.device(device)
-    out = {}
+    """A numpy batch as tensors on ``device``, through the process's one
+    :class:`~roma_tpu_torch.utils.staging.PinnedStaging` (on a CUDA device
+    one asynchronous copy from a reused pinned buffer, ordered before any
+    kernel that reads it). Span: ``roma.loader.to_device``."""
     with annotate("roma.loader.to_device"):
-        for k, v in batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            out[k] = t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t.to(device)
-    return out
+        return dict(zip(batch, _STAGING.to_device(list(batch.values()), device)))

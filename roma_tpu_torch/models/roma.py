@@ -9,11 +9,11 @@ certainty 0, clamp to [-1, 1], and the warp: side by side when symmetric,
 A -> B otherwise. With ``upsample_preds=False`` the coarse pass's finest
 flow and certainty are the result, bilinearly resized to the output
 resolution (the coarse resolution then).
+Path and PIL inputs take one route on every device (``_prep_pair``).
 """
 from __future__ import annotations
 
 import math
-import threading
 from pathlib import Path
 
 import numpy as np
@@ -22,39 +22,10 @@ from PIL import Image
 
 from ..ops import (balanced_sample, grid_sample, interpolate, normalized_grid, resize_normalize,
                    to_normalized_coords, to_pixel_coords)
-from ..utils.image import imagenet_normalize, load_image, resize, to_array
+from ..utils.image import load_image, to_array
 from ..utils.profiling import annotate
+from ..utils.staging import PinnedStaging
 from .matcher import RoMaNet
-
-
-class _PinnedStaging:
-    """A pinned host buffer, reused and grown as needed, through which
-    arrays go to a CUDA device in one asynchronous copy. An event recorded
-    after the copy is waited on before the buffer is written again, so
-    calls with no synchronization between them cannot overwrite a copy in
-    flight; a lock keeps threads off the buffer one at a time."""
-
-    def __init__(self):
-        self._buf, self._copied = None, None
-        self._lock = threading.Lock()
-
-    def to_device(self, arrays, device: torch.device) -> torch.Tensor:
-        """Contiguous uint8 arrays back to back in one flat tensor on
-        ``device``."""
-        n = sum(a.size for a in arrays)
-        with self._lock:
-            if self._copied is not None:
-                self._copied.synchronize()
-            if self._buf is None or self._buf.numel() < n:
-                self._buf = torch.empty(n, dtype=torch.uint8, pin_memory=True)
-            host, at = self._buf.numpy(), 0
-            for a in arrays:
-                host[at:at + a.size] = a.reshape(-1)
-                at += a.size
-            out = self._buf[:n].to(device, non_blocking=True)
-            self._copied = torch.cuda.Event()
-            self._copied.record(torch.cuda.current_stream(device))
-        return out
 
 
 class RegressionMatcher:
@@ -95,7 +66,7 @@ class RegressionMatcher:
         p = next(net.encoder.cnn.parameters())
         self.device, self.dtype = p.device, p.dtype
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self._staging = _PinnedStaging()
+        self._staging = PinnedStaging()
 
     def get_output_resolution(self) -> tuple[int, int]:
         return self.upsample_res if self.upsample_preds else (self.h_resized, self.w_resized)
@@ -134,36 +105,21 @@ class RegressionMatcher:
     def _prep_pair(self, pil_A, pil_B, hws):
         """Both images at each (h, w) of ``hws``, ImageNet-normalized in the
         net's dtype on its device: [(im_A, im_B), ...], each (1, h, w, 3).
-        The bicubic resize is Pillow's, as the reference's: on a CUDA device
-        on the card (``ops.resize_normalize``, Pillow's bytes), each image's
-        pixels copied there once; elsewhere in PIL on the host
-        (:meth:`_resize_on_host`)."""
-        if self.device.type != "cuda":
-            return [self._resize_on_host(pil_A, pil_B, hw) for hw in hws]
+        Each image's pixels go to the device once (``utils.staging``); the
+        bicubic resize is Pillow's, bit for bit (``ops.resize_normalize``:
+        Kernel M on the card, its plain version elsewhere), one call a size
+        over both images when their sizes match."""
         x_A, x_B = np.asarray(pil_A), np.asarray(pil_B)
-        raw = self._staging.to_device((x_A, x_B), self.device)
         if x_A.shape == x_B.shape:
-            batches = [raw.view(2, *x_A.shape)]
+            batches = [self._staging.to_device((x_A, x_B), self.device, stack=True)]
         else:
-            batches = [raw[:x_A.size].view(1, *x_A.shape), raw[x_A.size:].view(1, *x_B.shape)]
+            batches = [x[None] for x in self._staging.to_device((x_A, x_B), self.device)]
         out = []
         for hw in hws:
             with annotate("roma.match.resize"):
                 ims = [resize_normalize(x, hw, self.dtype) for x in batches]
             out.append((ims[0][:1], ims[-1][-1:]))
         return out
-
-    def _resize_on_host(self, pil_A, pil_B, hw):
-        """Bicubic resize on the host (PIL, as the reference); the uint8
-        pixels go to the device, where the [0, 1] scaling and the ImageNet
-        normalization run."""
-        out = []
-        for p in (pil_A, pil_B):
-            with annotate("roma.match.resize"):
-                p = resize(p, hw)
-            x = torch.from_numpy(np.array(p))[None].to(self.device)
-            out.append(imagenet_normalize(x.float() / 255.0).to(self.dtype))
-        return tuple(out)
 
     def _as_batch(self, im):
         t = im if torch.is_tensor(im) else torch.from_numpy(np.asarray(im, np.float32))
@@ -177,9 +133,9 @@ class RegressionMatcher:
 
         Accepts paths / PIL images or pre-normalized NHWC arrays or
         tensors at the coarse resolution. PIL inputs are resized with
-        Pillow's bicubic arithmetic: on a CUDA device on the card
-        (``ops.resize_normalize``, bit for bit PIL's bytes), on the CPU with
-        PIL on the host. Returns the warp,
+        Pillow's bicubic arithmetic, bit for bit PIL's bytes, by
+        ``ops.resize_normalize`` on every device (the kernel on the card,
+        its plain version on the CPU). Returns the warp,
         (x_A, y_A, x_B, y_B) in [-1, 1], and its certainty at
         :meth:`get_output_resolution`: (B, H, 2W, 4) and (B, H, 2W) side by
         side when symmetric, (B, H, W, 4) and (B, H, W) otherwise. A single
@@ -189,9 +145,8 @@ class RegressionMatcher:
 
         Spans (``utils.profiling``): ``roma.match``; inside it
         ``roma.match.prep`` (load, copy, ``roma.match.resize`` for each
-        resize: on the card one a size, the host's launch of both images'
-        resize and normalization; on the CPU one an image and size, PIL's
-        resize), ``roma.match.coarse`` and ``roma.match.upsample``, each
+        size: the call of both images' resize and normalization, on the card
+        its launch), ``roma.match.coarse`` and ``roma.match.upsample``, each
         with its device time and the net's ``roma.net.*`` module spans
         inside it (``models/encoders.py``, ``models/matcher.py``).
         """
@@ -230,8 +185,8 @@ class RegressionMatcher:
         inputs upsampled on the device."""
         out_hw = self.get_output_resolution()
         im_A_u = im_B_u = None
-        # inputs of both passes go to the card before the coarse pass: a
-        # pageable copy waits for the card, so one issued later idles it
+        # both passes' inputs are made before the coarse pass, from one copy
+        # of each image
         if isinstance(im_A_input, (str, Path, Image.Image)):
             pil_A, pil_B = load_image(im_A_input), load_image(im_B_input)
             hws = [(self.h_resized, self.w_resized)] + ([out_hw] if self.upsample_preds else [])

@@ -8,12 +8,12 @@ the card idle during every decode and resize. Here:
   * a producer thread decodes and bicubic-resizes each image to the model's
     resolutions (PIL, on a pool of ``WORKERS`` threads), ``PREFETCH``
     batches ahead; it touches no CUDA state;
-  * the images cross to the card as uint8, from pinned memory with
-    ``non_blocking=True`` on a copy stream, and the match's stream waits on
-    the copy's event; the [0, 1] scaling and the ImageNet normalization
-    (``normalize=True``) run on the card, as ``RegressionMatcher.match``
-    does for a path, so a pair's result is the one ``match`` gives for it in
-    a batch. A matcher without a canvas (``TinyRoMa``, which takes [0, 1]
+  * the images cross to the card as uint8 through ``utils.staging`` (a
+    reused pinned buffer, one copy a batch on the device's copy stream, which
+    the match's stream waits on); the [0, 1] scaling and the ImageNet
+    normalization (``normalize=True``) run on the card, as
+    ``RegressionMatcher.match`` does for a path, so a pair's result is the
+    one ``match`` gives for it in a batch. A matcher without a canvas (``TinyRoMa``, which takes [0, 1]
     images) is served with ``resize_hw=(h, w)`` and ``normalize=False``;
   * each batch is one two-pass match of ``batch_size`` pairs: the last,
     short batch is padded with its last pair and those results are dropped;
@@ -67,6 +67,7 @@ import torch
 
 from .utils.image import imagenet_normalize, load_image, resize
 from .utils.profiling import annotate, new_units
+from .utils.staging import PinnedStaging
 
 # host batches prepared ahead of the match, matched batches queued on the card
 # before the engine waits for the oldest (bounds device memory), and decode /
@@ -165,7 +166,7 @@ class MatchEngine:
         self.devices = devices
         self.replicas = [model if i == 0 and d == own else _replica(model, d) for i, d in enumerate(devices)]
         self.dtype = getattr(model, "dtype", torch.float32)
-        self._copy_streams: dict[torch.device, torch.cuda.Stream] = {}
+        self._staging = PinnedStaging()
 
     def _resolutions(self):
         if self.resize_hw is not None:
@@ -195,25 +196,6 @@ class MatchEngine:
         names = ("im_A", "im_B", "im_A_high_res", "im_B_high_res")
         return ok, failed, {n: np.stack([o[k] for o in outs]) for k, n in enumerate(names[:len(outs[0])])}
 
-    def _to_device(self, batch: dict, device: torch.device) -> dict:
-        """uint8 arrays -> tensors on ``device``: through pinned memory and
-        that device's copy stream on a card, ordered before the match by
-        an event."""
-        if device.type != "cuda":
-            return {k: torch.from_numpy(v) for k, v in batch.items()}
-        if device not in self._copy_streams:
-            self._copy_streams[device] = torch.cuda.Stream(device)
-        stream = self._copy_streams[device]
-        pinned = {k: torch.from_numpy(v).pin_memory() for k, v in batch.items()}
-        with torch.cuda.stream(stream):
-            out = {k: v.to(device, non_blocking=True) for k, v in pinned.items()}
-            copied = stream.record_event()
-        main = torch.cuda.current_stream(device)
-        main.wait_event(copied)
-        for v in out.values():
-            v.record_stream(main)
-        return out
-
     @torch.inference_mode()
     def _dispatch(self, batch: dict) -> list[tuple]:
         """One match a shard of a prepared batch, on its replica's device;
@@ -226,7 +208,7 @@ class MatchEngine:
             with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
                 x = {}
                 with annotate("roma.engine.to_device"):
-                    for k, v in self._to_device(shard, device).items():
+                    for k, v in zip(shard, self._staging.to_device(list(shard.values()), device)):
                         v = v.float() / 255.0
                         x[k] = (imagenet_normalize(v) if self.normalize else v).to(self.dtype)
                 warp, certainty = model.match(x.pop("im_A"), x.pop("im_B"), **x)

@@ -48,6 +48,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..datasets.loader import to_device
 from ..models import RoMaConfig
 from ..models.zoo import train_net
 from ..ops import KERNEL_WRAPPERS
@@ -169,10 +170,6 @@ def make_batch(rs, b, res, pool=None):
     draws = [_draw(rs) for _ in range(b)]
     items = list((pool.map if pool is not None else map)(lambda dr: _render(res, *dr), draws))
     return {k: np.stack([it[k] for it in items]) for k in items[0]}
-
-
-def to_device(batch: dict, device) -> dict:
-    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
 def dense_pck(corresps, batch, thresholds=(1.0, 3.0, 5.0)):

@@ -16,6 +16,7 @@ from jax.experimental.pallas import tpu as pltpu
 from roma_tpu.ops.pallas_attention import fused_attention as jax_heads
 from roma_tpu.ops.pallas_attention import fused_attention_packed as jax_packed
 from roma_tpu_torch.ops import KERNEL_WRAPPERS, fused_attention, fused_attention_packed, sdpa
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 
 CASES = [(64, None), (128, None), (64, 187), (128, 187)]
 

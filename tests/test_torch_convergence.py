@@ -35,6 +35,7 @@ from roma_tpu_torch.ops import KERNEL_WRAPPERS
 from roma_tpu_torch.tools import convergence_run as conv
 from roma_tpu_torch.train import make_ema_update, make_train_step
 from torch_port_fixtures import TINY, port_net, seeded_tiny_variables
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -42,18 +43,6 @@ import convergence_run as jax_conv  # noqa: E402
 from fullres_parity import render_peaked_bias  # noqa: E402
 
 B, RES, STEPS = 2, 56, 3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread: the tier runs several test processes at once, and
-    torch's thread pools in each spin against the others'."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(was)
 
 
 @pytest.mark.parametrize("threads", [0, 2], ids=["in turn", "rendered on 2 threads"])

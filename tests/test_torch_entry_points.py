@@ -29,6 +29,7 @@ from roma_tpu_torch.experiments import (
 from roma_tpu_torch.models import RoMaConfig
 from roma_tpu_torch.models.blocks import QConv1x1
 from roma_tpu_torch.models.vit import QLinear
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 
 TINY = RoMaConfig.tiny()
 SMALL = ["--device", "cpu", "--coarse_res", "56", "--upsample_res", "64"]

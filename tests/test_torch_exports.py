@@ -26,18 +26,7 @@ from roma_tpu.models.vit import vit_large as jax_vit_large
 from roma_tpu_torch.models import RegressionMatcher
 from roma_tpu_torch.models.convert import check_jax_shapes
 from roma_tpu_torch.models.vit import vit_large
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread: the tier runs several test processes at once, and
-    torch's thread pools in each spin against the others'."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(was)
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 
 
 @pytest.mark.parametrize("jax_pkg,port_pkg", [(roma_tpu, roma_tpu_torch), (j_ops, t_ops), (j_utils, t_utils)],

@@ -45,6 +45,7 @@ from roma_tpu_torch.models.convert import from_jax_variables
 from roma_tpu_torch.models.vit import QLinear
 from roma_tpu_torch.ops import int8 as int8_ops
 from roma_tpu_torch.ops.int8 import int8_matmul, padded_int_mm, quantize
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 
 FLOAT_ATOL = 1e-4
 FLIP_ATOL = 1e-2

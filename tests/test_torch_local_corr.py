@@ -13,6 +13,7 @@ from roma_tpu.ops.tile_window import CorrSpec, windowed_local_corr
 from roma_tpu_torch.ops import local_correlation
 from roma_tpu_torch.ops.local_corr import corr_checks
 from torch_port_fixtures import flow_field
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 
 CSPEC = CorrSpec(th=8, tw=8, wh=24, xq=8, ns=4, pm=8, kf=4, nt_bad=8, cc=8)
 ATOL = 1e-4  # C-long float32 dot products summed in another order

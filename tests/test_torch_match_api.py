@@ -15,6 +15,7 @@ from torch_port_fixtures import seeded_tiny_variables
 from roma_tpu.models.roma import RegressionMatcher as JaxMatcher
 from roma_tpu_torch import ops
 from roma_tpu_torch.models import RoMaConfig, roma_outdoor
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 
 H, W = 32, 40
 

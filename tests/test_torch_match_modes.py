@@ -14,6 +14,7 @@ import jax.numpy as jnp
 from roma_tpu.models.roma import RegressionMatcher as JaxMatcher
 from roma_tpu_torch.models.roma import RegressionMatcher
 from torch_port_fixtures import TINY, port_net, seeded_tiny_variables
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 
 ATOL = 2e-3  # the bar of tests/test_roma_parity.py:427-437, as tests/test_torch_roma.py
 H = W = 56

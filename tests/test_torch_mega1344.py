@@ -18,6 +18,7 @@ from perfbench.reference import roma as R
 from perfbench.tests.tiny import tiny_model
 from roma_tpu_torch.models.roma import RegressionMatcher
 from roma_tpu_torch.serving import MatchEngine
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 
 CELL = "match1344_engine_b4"
 SPAN_METRICS = {"vgg_ms.engine": "roma.net.vgg", "dinov2_ms.engine": "roma.net.dinov2",
@@ -26,17 +27,6 @@ SPAN_METRICS = {"vgg_ms.engine": "roma.net.vgg", "dinov2_ms.engine": "roma.net.d
 # mix or the trace, so the same readers serve this cell
 ENGINE_METRICS = {"engine_kernels_roofline", "idle_share.engine", "mfu.engine", "prep_ms.engine", "wait_ms.engine",
                   "dispatch_ms.engine"}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread: the tier runs several test processes at once."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(was)
 
 
 @pytest.fixture(scope="module")

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 from roma_tpu.ops import pallas_refiner as pr
 from roma_tpu_torch.ops import fused_refiner_stack_packed
 from roma_tpu_torch.ops.refiner_stack import PACKED_PATH_CODES, packed_checks, packed_weights
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 
 
 def _blocks(c, n, seed=0):

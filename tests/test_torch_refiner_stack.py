@@ -16,6 +16,7 @@ from roma_tpu_torch.models.config import RefinerSpec
 from roma_tpu_torch.models.matcher import ConvRefiner
 from roma_tpu_torch.ops import fold_block, fold_refiner, fused_refiner_stack
 from roma_tpu_torch.ops.refiner_stack import stack_checks
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 
 ATOL = 1e-4
 

@@ -18,22 +18,11 @@ import torch
 from roma_tpu_torch.models import blocks
 from roma_tpu_torch.models.config import RoMaConfig
 from roma_tpu_torch.models.zoo import train_net
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 # the module, which the package's function of the same name hides
 fa = importlib.import_module("roma_tpu_torch.ops.fused_attention")
 
 TINY = RoMaConfig.tiny()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread: the tier runs several test processes at once, and
-    torch's thread pools in each spin against the others'."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(was)
 
 
 def _images(seed):

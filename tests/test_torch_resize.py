@@ -2,10 +2,11 @@
 with the ImageNet normalization.
 
 On the CPU the plain path is held to the installed Pillow bit for bit over
-a sweep of shapes and contents. That sweep is also the guard of the card
-path: ``RegressionMatcher.match`` on CUDA resizes with M in place of PIL, so
-a Pillow whose coefficients or rounding differ from ``pillow_coeffs`` fails
-here, and the card path must not ship until the model follows it. The tests
+a sweep of shapes and contents. That sweep is also the guard of the
+matcher's prep: ``RegressionMatcher.match`` resizes with M (its plain path
+on the CPU) in place of PIL, so a Pillow whose coefficients or rounding
+differ from ``pillow_coeffs`` fails here, and the prep must not ship until
+the model follows it. The tests
 marked ``card`` hold M to the plain path on the card, the matcher's inputs
 to the PIL path's, and unsynchronized calls to synchronized ones; they skip
 without a CUDA device and run on the card with
@@ -28,7 +29,8 @@ from roma_tpu_torch.ops.resize import (
     resize_plan,
     resize_u8_reference,
 )
-from roma_tpu_torch.utils.image import imagenet_normalize
+from roma_tpu_torch.utils.image import imagenet_normalize, resize
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 
 # (H, W) -> (h, w): the single-pair traffic's canvases, the engine's input
 # sizes, up- and downsampling on each axis, odd and non-square sizes, sides
@@ -135,19 +137,29 @@ def test_tables_and_plans():
         resize_plan(10_000_000, 1, 1)
 
 
+def pil_path(a: Image.Image, b: Image.Image, hw, dtype, device) -> tuple:
+    """Both images through PIL's bicubic resize on the host, then the [0, 1]
+    scaling and the ImageNet normalization on ``device``."""
+    return tuple(imagenet_normalize(torch.from_numpy(np.array(resize(p, hw)))[None].to(device).float() / 255.0)
+                 .to(dtype) for p in (a, b))
+
+
 def test_cpu_matcher_keeps_pil(monkeypatch):
-    """On the CPU the matcher's prep is PIL's, as before: the kernel's
-    wrapper is not called."""
+    """On the CPU the matcher's prep goes through ``resize_normalize`` (its
+    plain version), once a size for a pair of one size, and gives the PIL
+    path's values bit for bit."""
     from roma_tpu_torch.models import roma as roma_mod
     from roma_tpu_torch.models.config import RoMaConfig
     from roma_tpu_torch.models.zoo import roma_outdoor
 
     m = roma_outdoor(config=RoMaConfig.tiny(), amp=False, coarse_res=56, upsample_res=64, device="cpu")
-    monkeypatch.setattr(roma_mod, "resize_normalize", lambda *a: pytest.fail("card path on the CPU"))
+    calls = []
+    monkeypatch.setattr(roma_mod, "resize_normalize", lambda *a: calls.append(a[1]) or resize_normalize(*a))
     a, b = (Image.fromarray(image((40, 50), "noise", seed=s)) for s in (3, 4))
     got = m._prep_pair(a, b, [(56, 56), (64, 64)])
+    assert calls == [(56, 56), (64, 64)]
     for (im_a, im_b), hw in zip(got, ((56, 56), (64, 64))):
-        want = m._resize_on_host(a, b, hw)
+        want = pil_path(a, b, hw, m.dtype, "cpu")
         assert torch.equal(im_a, want[0]) and torch.equal(im_b, want[1])
 
 
@@ -206,7 +218,7 @@ def test_match_inputs_equal_the_pil_path_on_the_card(amp):
         im_a, im_b, up_a, up_b, _ = m._prep_inputs(a, b, None, None)
         assert resize_normalize.launches - before == (2 if a.size == b.size else 4)
         for got, hw in (((im_a, im_b), (560, 560)), ((up_a, up_b), (864, 864))):
-            want = m._resize_on_host(a, b, hw)
+            want = pil_path(a, b, hw, m.dtype, m.device)
             assert all(g.dtype == m.dtype and torch.equal(g, w) for g, w in zip(got, want)), (k, hw)
 
 
@@ -227,7 +239,7 @@ def test_unsynchronized_matches_equal_synchronized_ones():
         torch.cuda.synchronize()
         synced.append(m.match(a, b))
         torch.cuda.synchronize()
-    torch.cuda._sleep(1_000_000_000)  # the card busy: each copy below waits behind it
+    torch.cuda._sleep(1_000_000_000)  # the card busy: each resize below waits behind it, its copy does not
     loose_inputs = [m._prep_inputs(a, b, None, None)[:4] for a, b in pairs]
     torch.cuda._sleep(1_000_000_000)
     loose = [m.match(a, b) for a, b in pairs]

@@ -17,6 +17,7 @@ from roma_tpu.ops.kde import kde as jax_kde
 from roma_tpu_torch.models.roma import RegressionMatcher
 from roma_tpu_torch.ops import kde
 from torch_port_fixtures import TINY, port_net, seeded_tiny_variables
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 
 ATOL = 2e-3  # the bar of tests/test_roma_parity.py:427-437
 

@@ -26,6 +26,7 @@ from roma_tpu_torch import serving
 from roma_tpu_torch.serving import MatchEngine, MatchEngineError, MatchResult
 from roma_tpu_torch.utils.image import imagenet_normalize, load_image, resize
 from torch_port_fixtures import TINY, port_net, seeded_tiny_variables
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 
 TOL = 1e-5
 JAX_ATOL = 2e-3

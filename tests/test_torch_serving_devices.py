@@ -19,21 +19,10 @@ from roma_tpu_torch.benchmarks.pose_bench import PosePair, run_pose_benchmark
 from roma_tpu_torch.models.roma import RegressionMatcher
 from roma_tpu_torch.parallel import get_devices
 from torch_port_fixtures import port_net, seeded_tiny_variables
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 
 H = W = 56
 UP = (64, 64)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread: the tier runs several test processes at once, and
-    torch's thread pools in each spin against the others'."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(was)
 
 
 @pytest.fixture(scope="module")

@@ -16,21 +16,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from roma_tpu_torch import _ext, ops  # noqa: E402
+from torch_port_fixtures import one_thread  # noqa: E402, F401 (autouse: one torch thread)
 
 TC_KERNELS = [(kind, d) for kind in ("fwd", "bwd_dq", "bwd_dkv") for d in (64, 128)]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread: the tier runs several test processes at once, and
-    torch's thread pools in each spin against the others' (the planted
-    cases took 50-86 s a test under the tier against 0.15 s alone)."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(was)
 
 
 def ptxas_report(spilled=None, drop=None):

@@ -35,6 +35,7 @@ from roma_tpu_torch.models.zoo.convert import XFEAT_PREFIX, to_reference
 from roma_tpu_torch.ops import KERNEL_WRAPPERS, interpolate
 from test_torch_sampling_uniforms import DRAW_DIFF, feed, uniforms
 from torch_port_fixtures import port_tiny_net, seeded_tiny_roma_variables
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 
 XFEAT_TOL = dict(atol=2e-4, rtol=1e-3)
 TOL = dict(atol=5e-4, rtol=1e-3)

@@ -41,6 +41,7 @@ from roma_tpu_torch.train import (
     mutual_nearest_mask,
 )
 from torch_port_fixtures import port_tiny_net, seeded_tiny_roma_variables
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 
 B, HW = 2, 64
 CONFIGS = {"default": {}, "gated": dict(epe_mask_prob_th=0.001, cert_only_on_consistent_depth=True,

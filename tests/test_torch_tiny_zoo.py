@@ -28,6 +28,7 @@ from roma_tpu_torch.models.convert import to_port_layout
 from roma_tpu_torch.models.zoo import download
 from roma_tpu_torch.models.zoo.convert import XFEAT_PREFIX, to_reference
 from test_tiny import TinyTorch
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 
 HEADS = {"keypoint_head.0.layer.0.weight": (64, 64, 1, 1), "heatmap_head.2.weight": (1, 64, 1, 1),
          "fine_matcher.0.weight": (512, 128), "fine_matcher.0.bias": (512,)}

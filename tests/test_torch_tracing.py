@@ -28,20 +28,10 @@ from roma_tpu_torch.tools import convergence_run as conv
 from roma_tpu_torch.train import make_train_step
 from roma_tpu_torch.utils import profiling
 from torch_port_fixtures import TINY, port_net, seeded_tiny_variables
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 
 H = W = 56
 UP = (64, 64)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread: the tier runs several test processes at once."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(was)
 
 
 @pytest.fixture(autouse=True)
@@ -140,8 +130,8 @@ def test_match_records_its_stages_as_one_unit(model, images):
     assert len(roots) == 1 and roots[0]["parent"] is None
     root = roots[0]
     by_name = Counter(s["name"] for s in _spans() if not s["name"].startswith(("roma.ops.", "roma.net.")))
-    assert by_name == {"roma.match": 1, "roma.match.prep": 1, "roma.match.resize": 4, "roma.match.coarse": 1,
-                       "roma.match.upsample": 1}
+    assert by_name == {"roma.match": 1, "roma.match.prep": 1, "roma.match.resize": 2, "roma.match.coarse": 1,
+                       "roma.match.upsample": 1}  # one resize a canvas, both images in it, on every device
     prep = _spans("roma.match.prep")[0]
     for s in _spans():
         assert s["unit"] == root["unit"] and s["thread"] == threading.get_native_id() and s["traced"]

@@ -45,6 +45,7 @@ from torch_port_fixtures import TINY, port_net, seeded_tiny_variables
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from fullres_parity import render_peaked_bias  # noqa: E402
+from torch_port_fixtures import one_thread  # noqa: E402, F401 (autouse: one torch thread)
 
 MODES = ["bilinear", "nearest-exact", "combined"]
 

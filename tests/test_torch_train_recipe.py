@@ -37,21 +37,9 @@ from roma_tpu_torch.train import (
 )
 from roma_tpu_torch.utils import profiling
 from torch_dist_worker import seeded_batch
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 
 TINY = RoMaConfig.tiny()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread: the tier runs several test processes at once, and
-    torch's thread pools in each spin against the others' (these steps ran
-    ~30x slower on 8 threads a process)."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(was)
 
 
 # --- resume ------------------------------------------------------------------

@@ -36,19 +36,12 @@ from roma_tpu_torch.ops.depthwise import (
     wide_stack,
 )
 from roma_tpu_torch.tools.bench_hcw_refiner import make_modules
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 
 # the wide stacks' widths at released dims: scales 16, 8, 4, 2
 WIDTHS = (1377, 1137, 569, 144)
 # the refiner specs of those scales (in = hidden = C)
 SPECS = {1377: (128, 7, 512), 1137: (64, 3, 512), 569: (32, 2, 256), 144: (16, None, 64)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def modules(c, n=9, seed=0, device="cpu", dtype=torch.float32):

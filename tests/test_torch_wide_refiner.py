@@ -31,6 +31,7 @@ from roma_tpu_torch.ops.wide_refiner import (
     padded_w2t,
     wide_block_checks,
 )
+from torch_port_fixtures import one_thread  # noqa: F401 (autouse: one torch thread)
 
 STACKS = {
     "lane": (lambda x, b: jax_lane_stack(x, b, interpret=True), lane_refiner_stack),

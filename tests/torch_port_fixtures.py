@@ -1,29 +1,60 @@
 """Shared inputs for the tests of the PyTorch port (tests/test_torch_*.py):
 the JAX package's tiny-config variables refilled from a numpy seed, and the
 port's RoMaNet holding the same weights; the same for Tiny RoMa (the XFeat
-matcher, not the tiny config of big RoMa)."""
+matcher, not the tiny config of big RoMa); and the one-torch-thread module
+fixture.
+
+JAX and the JAX package are imported on first use (``TINY`` and the seeded
+variables), so a test file that takes only the fixture, or ``flow_field``,
+runs where JAX is not installed (the card's tests)."""
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+import pytest
 import torch
 
-import jax
-
-from roma_tpu.models.config import RoMaConfig
-from roma_tpu.models.roma import RegressionMatcher as JaxMatcher
-from roma_tpu.models.tiny import TinyRoMa as JaxTinyRoMa
 from roma_tpu_torch.models.convert import from_jax_variables
 from roma_tpu_torch.models.tiny import TinyRoMaNet
 from roma_tpu_torch.models.zoo import build_net
 
-TINY = RoMaConfig.tiny()
+
+@functools.cache
+def _tiny():
+    from roma_tpu.models.config import RoMaConfig
+
+    return RoMaConfig.tiny()
+
+
+def __getattr__(name):
+    if name == "TINY":  # the JAX package's tiny config
+        return _tiny()
+    raise AttributeError(name)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread in the module that imports this fixture: the tier
+    runs several test processes at once, and torch's thread pools in each
+    spin against the others' (test_torch_smoke_checks.py's planted cases
+    took 50-86 s a test under the tier against 0.15 s alone)."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(was)
 
 
 def seeded_tiny_variables(seed: int = 0) -> dict:
     """JAX tiny RoMaNet variables as nested numpy dicts, every leaf refilled
     from ``seed``: LeCun-scaled kernels, perturbed norm scales and biases, BN
     running stats drawn away from (0, 1) so the folding is exercised."""
-    shapes = JaxMatcher.init_variables(config=TINY, fast=True)
+    import jax
+    from roma_tpu.models.roma import RegressionMatcher as JaxMatcher
+
+    shapes = JaxMatcher.init_variables(config=_tiny(), fast=True)
     rs = np.random.RandomState(seed)
 
     def fill(path, leaf):
@@ -55,6 +86,9 @@ def seeded_tiny_roma_variables(seed: int = 0) -> dict:
     ``seed``: He-scaled conv kernels (the activations keep their scale
     through the ReLUs, so the global correlation is not flat), biases
     0.1 N(0, 1), BN running stats drawn away from (0, 1)."""
+    import jax
+    from roma_tpu.models.tiny import TinyRoMa as JaxTinyRoMa
+
     shapes = JaxTinyRoMa.init_variables(fast=True)
     rs = np.random.RandomState(seed)
 
@@ -81,7 +115,7 @@ def port_tiny_net(variables: dict, **kw) -> TinyRoMaNet:
 
 def port_net(variables: dict) -> torch.nn.Module:
     """The port's float32 RoMaNet on the CPU holding ``variables``."""
-    return from_jax_variables(variables, build_net(TINY, "cpu")).eval()
+    return from_jax_variables(variables, build_net(_tiny(), "cpu")).eval()
 
 
 def flow_field(h, w, b, kind, seed=0):
